@@ -1,0 +1,168 @@
+"""Port megakernel module (cnn_gp_tpu_torch.ops.megakernel) on the CPU:
+``match`` against the JAX package's rules, the plain version
+``gram_tile_reference`` against the JAX Pallas kernel in interpret mode
+and against the port's ``apply_kernel``, and the wrapper's device rules.
+The CUDA kernel itself is checked on the card by tests/test_torch_cuda.py
+and chip_smoke.py."""
+
+import numpy as np
+import pytest
+import torch
+
+import cnn_gp_tpu as G
+import cnn_gp_tpu_torch as T
+from cnn_gp_tpu.data import synthetic_arrays
+from cnn_gp_tpu.ops import megakernel as jmk
+from cnn_gp_tpu_torch.kernels import apply_kernel
+from cnn_gp_tpu_torch.ops import megakernel as tmk
+
+
+def small(M):
+    """2 layers, k=3, on 8x8 maps: the C=3 spec of the JAX test."""
+    return M.Sequential(M.Conv2d(3, var_weight=2.0, var_bias=0.5), M.ReLU(),
+                        M.Conv2d(3, var_weight=1.5, var_bias=0.1), M.ReLU(),
+                        M.Conv2d(8, padding=0))
+
+
+REFUSED = {
+    "residual": lambda M: M.Sum([M.Sequential(), M.Sequential()]),
+    "strided": lambda M: M.Sequential(M.Conv2d(3, stride=2), M.ReLU(),
+                                      M.Conv2d(7, padding=0)),
+    "even_kernel": lambda M: M.Sequential(M.Conv2d(4), M.ReLU(),
+                                          M.Conv2d(7, padding=0)),
+    "padded_readout": lambda M: M.Sequential(M.Conv2d(3), M.ReLU(),
+                                             M.Conv2d(7)),
+    "dilated": lambda M: M.Sequential(M.Conv2d(3, dilation=2), M.ReLU(),
+                                      M.Conv2d(7, padding=0)),
+    "mixed_k": lambda M: M.Sequential(M.Conv2d(3), M.ReLU(), M.Conv2d(5),
+                                      M.ReLU(), M.Conv2d(7, padding=0)),
+    "no_relu": lambda M: M.Sequential(M.Conv2d(3), M.Conv2d(3),
+                                      M.Conv2d(7, padding=0)),
+}
+
+
+def test_match_convnet_gp():
+    import configs
+    from cnn_gp_tpu_torch.configs import load
+    got = tmk.match(load("mnist_paper_convnet_gp").initial_model)
+    want = jmk.match(configs.load("mnist_paper_convnet_gp").initial_model)
+    assert got is not None and tuple(got) == tuple(want)
+    assert got.kernel_size == 7 and len(got.layer_vw_vb) == 7
+    assert got.readout_k == 28 and got.layer_vw_vb[0] == (2.79 * 49, 7.86)
+
+
+@pytest.mark.parametrize("name", sorted(REFUSED))
+def test_match_refuses_what_jax_refuses(name):
+    assert jmk.match(REFUSED[name](G)) is None
+    assert tmk.match(REFUSED[name](T)) is None
+
+
+def test_match_small_spec():
+    assert tuple(tmk.match(small(T))) == tuple(jmk.match(small(G)))
+
+
+def _pair(use_mask):
+    x, _, _, _ = synthetic_arrays(n_train=8, n_test=0, shape=(3, 8, 8))
+    z, _, _, _ = synthetic_arrays(n_train=128, n_test=0, shape=(3, 8, 8),
+                                  seed=2)
+    if not use_mask:
+        return x, z, None
+    # rows 0..7 are columns 4..11 of the same global examples (unmasked,
+    # such pairs sit at cos(theta) = 1, where acos amplifies rounding)
+    z[4:12] = x
+    mask = (4 + np.arange(8))[:, None] == np.arange(128)[None, :]
+    return x, z, mask
+
+
+def _scaled(got, want):
+    want = np.asarray(want, np.float64)
+    return np.abs(np.asarray(got, np.float64) - want).max() / np.abs(
+        want).max()
+
+
+@pytest.mark.parametrize("use_mask", [False, True])
+def test_reference_matches_jax_interpret(use_mask):
+    x, z, mask = _pair(use_mask)
+    want = np.asarray(jmk.gram_tile(jmk.match(small(G)), x, z, mask,
+                                    rows_per_step=8, interpret=True))
+    got = tmk.gram_tile_reference(
+        tmk.match(small(T)), torch.from_numpy(x), torch.from_numpy(z),
+        None if mask is None else torch.from_numpy(mask))
+    assert got.shape == (8, 128)
+    assert _scaled(got.numpy(), want) < 1e-5
+
+
+@pytest.mark.parametrize("use_mask", [False, True])
+def test_reference_matches_apply_kernel(use_mask):
+    x, z, mask = _pair(use_mask)
+    model = small(T)
+    tx, tz = torch.from_numpy(x), torch.from_numpy(z)
+    tmask = None if mask is None else torch.from_numpy(mask)
+    want = apply_kernel(model, tx, tz, False, False, tmask)
+    got = tmk.gram_tile_reference(tmk.match(model), tx, tz, tmask)
+    assert _scaled(got.numpy(), want.numpy()) < 1e-5
+
+
+def test_reference_paper_shape_symmetric():
+    """Full-width paper ConvNet on a diagonal tile: matches apply_kernel
+    and is exactly symmetric."""
+    from cnn_gp_tpu_torch.configs import load
+    model = load("mnist_paper_convnet_gp").initial_model
+    x, _, _, _ = synthetic_arrays(n_train=6, n_test=0)
+    tx = torch.from_numpy(x)
+    mask = torch.eye(6, dtype=torch.bool)
+    got = tmk.gram_tile_reference(tmk.match(model), tx, tx, mask).numpy()
+    want = apply_kernel(model, tx, tx, False, False, mask).numpy()
+    assert _scaled(got, want) < 1e-5
+    np.testing.assert_array_equal(got, got.T)
+
+
+def test_gram_tile_on_cpu_runs_the_plain_version():
+    x, z, mask = _pair(True)
+    spec = tmk.match(small(T))
+    before = tmk.launches
+    got = tmk.gram_tile(spec, torch.from_numpy(x), torch.from_numpy(z),
+                        torch.from_numpy(mask).to(torch.uint8))
+    want = tmk.gram_tile_reference(spec, torch.from_numpy(x),
+                                   torch.from_numpy(z),
+                                   torch.from_numpy(mask))
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert tmk.launches == before      # no kernel launched
+
+
+def test_cuda_path_refuses_other_tensors_and_never_runs_plain(monkeypatch):
+    def plain(*a, **k):
+        raise AssertionError("the CUDA path called the plain version")
+
+    monkeypatch.setattr(tmk, "gram_tile_reference", plain)
+    spec = tmk.match(small(T))
+    x = torch.zeros(2, 3, 8, 8)
+    before = tmk.launches
+    with pytest.raises(ValueError, match="cuda"):
+        tmk._launch(spec, x, x, None)
+    with pytest.raises(ValueError, match="cuda"):
+        tmk.gram_tile(spec, x.to("meta"), x.to("meta"))
+    assert tmk.launches == before
+
+
+@pytest.mark.parametrize("bad", ["dtype", "layout", "spatial", "mask_shape",
+                                 "mask_dtype", "devices"])
+def test_wrapper_checks_inputs(bad):
+    spec = tmk.match(small(T))
+    x = torch.zeros(4, 3, 8, 8)
+    z = torch.zeros(5, 3, 8, 8)
+    mask = None
+    if bad == "dtype":
+        x = x.double()
+    elif bad == "layout":
+        x = torch.zeros(4, 8, 8, 3).permute(0, 3, 1, 2)
+    elif bad == "spatial":
+        x, z = torch.zeros(4, 3, 10, 10), torch.zeros(5, 3, 10, 10)
+    elif bad == "mask_shape":
+        mask = torch.zeros(5, 4, dtype=torch.bool)
+    elif bad == "mask_dtype":
+        mask = torch.zeros(4, 5)
+    elif bad == "devices":
+        z = z.to("meta")
+    with pytest.raises(ValueError):
+        tmk.gram_tile(spec, x, z, mask)
