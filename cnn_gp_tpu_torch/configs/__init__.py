@@ -7,6 +7,10 @@ JAX config).  Each config is a plain module with attributes
 ``dataset_name``, ``train_range`` / ``validation_range`` / ``test_range``
 (index ranges into the concatenated train+test pool), ``in_channels``,
 ``out_channels``, ``transforms`` and ``initial_model``.
+
+Ported: ``synthetic``, ``mnist_paper_convnet_gp``, ``mnist_as_tf`` and
+``mnist`` (the default ``--config`` of the drivers: ResNet-32 on the
+50k/10k/10k split).
 """
 
 import importlib

@@ -11,9 +11,11 @@ Methods:
 * ``chol``  -- float64 ``torch.linalg.cholesky`` + ``cholesky_solve`` on
   the given device (the card has native FP64).
 
-``chol_ir``, ``chol_dist`` and the posterior variance / evidence / LPD
-functions are not ported yet (``ROADMAP.md``, Queue 1) and raise
-``NotImplementedError``.
+``chol_ir`` and ``chol_dist`` are not ported yet (``ROADMAP.md``, Queue 1)
+and raise ``NotImplementedError``.  The posterior statistics
+(``predictive_variance``, ``gaussian_lpd``, ``log_predictive_density``,
+``log_marginal_likelihood``, ``solve_gp_stats``) are the JAX package's
+float64 host oracles, the same numpy/scipy code.
 """
 
 from __future__ import annotations
@@ -117,17 +119,129 @@ def accuracy(pred: np.ndarray, labels: np.ndarray) -> float:
     return float(np.mean(np.asarray(pred) == np.asarray(labels)))
 
 
-def _not_ported(name: str):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name} is not ported yet (ROADMAP.md, Queue 1: slice 3); the "
-            f"JAX package's cnn_gp_tpu.ops.solve.{name} computes it")
-    fn.__name__ = name
-    return fn
+def predictive_variance(kxx: np.ndarray, kzx: np.ndarray,
+                        kzz_diag: np.ndarray,
+                        jitter: float = 0.0) -> np.ndarray:
+    """GP posterior variance per test point:
+    ``var_z = k_zz - k_zx (Kxx + jitter I)^-1 k_xz``, ``jitter`` ABSOLUTE.
+
+    float64 host oracle via one Cholesky and a triangular solve; clipped
+    at 0 (round-off can land epsilon-negative for nearly-interpolated
+    points)."""
+    import scipy.linalg
+    kxx = np.array(kxx, np.float64)       # a private copy, factored in place
+    if jitter:
+        diag_add(kxx, jitter)
+    c, low = scipy.linalg.cho_factor(kxx, lower=True, check_finite=False,
+                                     overwrite_a=True)
+    v = scipy.linalg.solve_triangular(c, np.asarray(kzx, np.float64).T,
+                                      lower=low, check_finite=False)
+    return np.maximum(np.asarray(kzz_diag, np.float64) - (v * v).sum(0),
+                      0.0)
 
 
-predictive_variance = _not_ported("predictive_variance")
-log_marginal_likelihood = _not_ported("log_marginal_likelihood")
-gaussian_lpd = _not_ported("gaussian_lpd")
-log_predictive_density = _not_ported("log_predictive_density")
-solve_gp_stats = _not_ported("solve_gp_stats")
+def gaussian_lpd(scores: np.ndarray, variances: np.ndarray,
+                 labels: np.ndarray, noise: float,
+                 n_classes: Optional[int] = None):
+    """Held-out log predictive density of +-1 one-hot targets under the
+    GP's Gaussian predictive: per test point
+    ``sum_c log N(y_c | mu_c, var + noise)``, the posterior variance shared
+    across classes and the observation noise equal to the jitter the solve
+    added.  Returns ``(mean, se, per_point)``."""
+    scores = np.asarray(scores, np.float64)
+    var = np.asarray(variances, np.float64) + float(noise)
+    if np.any(var <= 0):
+        raise ValueError("non-positive predictive variance + noise")
+    y = one_hot_targets(np.asarray(labels), n_classes=n_classes
+                        if n_classes is not None else scores.shape[1])
+    if y.shape != scores.shape:
+        raise ValueError(f"labels imply {y.shape}, scores {scores.shape}")
+    c = scores.shape[1]
+    per_point = (-0.5 * np.sum((y - scores) ** 2, axis=1) / var
+                 - 0.5 * c * (np.log(2.0 * np.pi) + np.log(var)))
+    mean = float(per_point.mean())
+    se = float(per_point.std(ddof=1) / np.sqrt(len(per_point))) \
+        if len(per_point) > 1 else 0.0
+    return mean, se, per_point
+
+
+def log_predictive_density(kxx: np.ndarray, kzx: np.ndarray,
+                           kzz_diag: np.ndarray, train_labels: np.ndarray,
+                           test_labels: np.ndarray,
+                           jitter_rel: float = 0.0,
+                           n_classes: Optional[int] = None):
+    """float64 host oracle for held-out LPD: one Cholesky of
+    ``K + jitter_rel * mean(diag K) * I`` gives means, variances and the
+    density.  Returns ``(mean, se, per_point)`` as :func:`gaussian_lpd`."""
+    import scipy.linalg
+    kxx = np.array(kxx, np.float64)
+    jr = jitter_rel * float(np.mean(np.diagonal(kxx)))
+    if jr:
+        diag_add(kxx, jr)
+    y = one_hot_targets(np.asarray(train_labels), n_classes=n_classes)
+    c, low = scipy.linalg.cho_factor(kxx, lower=True, check_finite=False,
+                                     overwrite_a=True)
+    alpha = scipy.linalg.cho_solve((c, low), y, check_finite=False)
+    scores = np.asarray(kzx, np.float64) @ alpha
+    v = scipy.linalg.solve_triangular(c, np.asarray(kzx, np.float64).T,
+                                      lower=low, check_finite=False)
+    var = np.maximum(np.asarray(kzz_diag, np.float64) - (v * v).sum(0),
+                     0.0)
+    return gaussian_lpd(scores, var, test_labels, jr,
+                        n_classes=y.shape[1])
+
+
+def log_marginal_likelihood(kxx: np.ndarray, y: np.ndarray,
+                            jitter_rel: float = 0.0) -> float:
+    """float64 GP log evidence ``log p(y | X)`` summed over target dims:
+    ``-1/2 tr(Y^T K'^-1 Y) - C/2 logdet K' - n C/2 log 2pi`` with
+    ``K' = K + jitter_rel * mean(diag K) * I``.
+
+    The jitter is RELATIVE here (hence the name), as in
+    ``parallel.classify_device`` and ``classify_e2e --jitter``;
+    ``solve_gp``, ``predictive_variance`` and ``solve_gp_stats`` take it
+    ABSOLUTE.  On a ~1e12-diagonal NNGP Gram the same number means wildly
+    different regularisation under the two conventions."""
+    import scipy.linalg
+    kxx = np.array(kxx, np.float64)
+    y = np.asarray(y, np.float64)
+    if jitter_rel:
+        diag_add(kxx, jitter_rel * float(np.mean(np.diagonal(kxx))))
+    c, low = scipy.linalg.cho_factor(kxx, lower=True, check_finite=False,
+                                     overwrite_a=True)
+    alpha = scipy.linalg.cho_solve((c, low), y, check_finite=False)
+    logdet = 2.0 * float(np.sum(np.log(np.diagonal(c))))
+    n, n_cls = y.shape
+    return float(-0.5 * np.sum(y * alpha) - 0.5 * n_cls * logdet
+                 - 0.5 * n * n_cls * np.log(2.0 * np.pi))
+
+
+def solve_gp_stats(kxx: np.ndarray, y: np.ndarray, jitter: float = 0.0,
+                   splits=()) -> dict:
+    """ONE float64 Cholesky serving the solve, per-split posterior
+    variances and the GP log evidence (``classify_gp --variances``).
+
+    ``kxx`` is the full symmetrised matrix, CONSUMED (jitter added and
+    factored in place); ``jitter`` is ABSOLUTE; ``splits`` is a sequence of
+    ``(kzx [nz, n], kzz_diag [nz])`` pairs.  Returns
+    ``{"alpha", "variances", "log_evidence"}``."""
+    import scipy.linalg
+    kxx = np.asarray(kxx, np.float64)
+    if jitter:
+        diag_add(kxx, jitter)
+    c, low = scipy.linalg.cho_factor(kxx, lower=True, check_finite=False,
+                                     overwrite_a=True)
+    y64 = np.asarray(y, np.float64)
+    alpha = scipy.linalg.cho_solve((c, low), y64, check_finite=False)
+    logdet = 2.0 * float(np.sum(np.log(np.diagonal(c))))
+    n, n_cls = y64.shape
+    ev = float(-0.5 * np.sum(y64 * alpha) - 0.5 * n_cls * logdet
+               - 0.5 * n * n_cls * np.log(2.0 * np.pi))
+    variances = []
+    for kzx, kzz in splits:
+        v = scipy.linalg.solve_triangular(
+            c, np.asarray(kzx, np.float64).T, lower=low,
+            check_finite=False)
+        variances.append(np.maximum(
+            np.asarray(kzz, np.float64) - (v * v).sum(0), 0.0))
+    return {"alpha": alpha, "variances": variances, "log_evidence": ev}

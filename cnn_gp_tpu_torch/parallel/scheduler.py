@@ -13,7 +13,8 @@ import numpy as np
 
 from ..utils import round_up_div
 
-__all__ = ["tile_manifest", "worker_span", "worker_manifest"]
+__all__ = ["tile_manifest", "worker_span", "worker_manifest",
+           "tile_offsets"]
 
 
 def tile_manifest(n1_batches: int, n2_batches: int, symmetric: bool
@@ -51,3 +52,9 @@ def worker_manifest(n1: int, n2, batch_size: int, symmetric: bool,
     manifest = tile_manifest(n1_b, n2_b, symmetric)
     start, count = worker_span(len(manifest), worker_rank, n_workers)
     return manifest[start:start + count]
+
+
+def tile_offsets(n1: int, n2: int, batch_size: int, symmetric: bool):
+    """(i0, j0) element offsets of the whole manifest, in its order."""
+    for _, i, j in worker_manifest(n1, n2, batch_size, symmetric):
+        yield int(i) * batch_size, int(j) * batch_size

@@ -2,7 +2,9 @@
 
 PyTorch counterpart of ``cnn_gp_tpu/settings.py``: the same switches with
 the same defaults, read at call time.  ``override`` swaps them for the
-duration of a ``with`` block.
+duration of a ``with`` block.  ``snapshot()`` has the JAX package's tuple
+layout, so a posterior saved by either package records settings that the
+other compares equal (``serving.GPPredictor``).
 """
 
 from __future__ import annotations
@@ -11,6 +13,10 @@ import contextlib
 
 import torch
 
+# The port has one lowering each for the box filter and the ReLU; these
+# record them under the JAX package's names (its defaults) for snapshot().
+conv_method = "separable"
+relu_method = "auto"
 # arccos implementation inside the ReLU transform: "poly" (Cephes-style
 # polynomial, the one the megakernel evaluates) | "exact" (torch.acos).
 acos_impl = "poly"
@@ -23,6 +29,14 @@ relu_impl = "fast"
 # ``apply_kernel`` checks and the entry points (CLI scripts,
 # chip_smoke.py) enforce with ``disable_tf32``.
 moment_precision = "highest"
+# Differentiation-safe ReLU transform (the JAX package's fit path); the port
+# differentiates nothing yet, so it stays off.
+grad_safe = False
+
+
+def snapshot():
+    return (conv_method, relu_method, acos_impl, relu_impl,
+            moment_precision, grad_safe)
 
 
 def disable_tf32() -> None:
@@ -46,6 +60,13 @@ def check_precision() -> None:
             f"torch.backends.cudnn.allow_tf32="
             f"{torch.backends.cudnn.allow_tf32}); call "
             "cnn_gp_tpu_torch.settings.disable_tf32() first")
+
+
+def check_precision_on(device) -> None:
+    """``check_precision()`` for work on ``device``: TF32 exists only on
+    CUDA, so CPU work needs no check."""
+    if torch.device(device).type == "cuda":
+        check_precision()
 
 
 @contextlib.contextmanager

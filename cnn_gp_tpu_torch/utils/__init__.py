@@ -1,3 +1,5 @@
+import argparse
+
 import torch
 
 from .timing import print_timings, hhmmss  # noqa: F401
@@ -5,6 +7,22 @@ from .timing import print_timings, hhmmss  # noqa: F401
 
 def round_up_div(a: int, b: int) -> int:
     return (a + b - 1) // b
+
+
+def add_bool_flag(parser, name: str, default: bool, help: str) -> None:
+    """An argparse boolean spelled as absl spells it: ``--name``,
+    ``--noname`` and ``--name=true|false``, so the JAX drivers' command
+    lines parse unchanged."""
+    def parse(v: str) -> bool:
+        if v.lower() in ("1", "true", "t", "yes"):
+            return True
+        if v.lower() in ("0", "false", "f", "no"):
+            return False
+        raise ValueError(f"not a boolean: {v!r}")
+    parser.add_argument(f"--{name}", nargs="?", const=True, default=default,
+                        type=parse, help=help)
+    parser.add_argument(f"--no{name}", dest=name, action="store_false",
+                        help=argparse.SUPPRESS)
 
 
 def resolve_device(name: str) -> torch.device:

@@ -41,7 +41,7 @@ def describe(m):
     return (kind,)
 
 
-CONFIGS = ["synthetic", "mnist_paper_convnet_gp", "mnist_as_tf"]
+CONFIGS = ["synthetic", "mnist_paper_convnet_gp", "mnist_as_tf", "mnist"]
 
 
 @pytest.mark.parametrize("name", CONFIGS)

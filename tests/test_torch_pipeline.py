@@ -107,7 +107,5 @@ def test_classify_refuses_unported_solvers():
     for method in ("chol_ir", "chol_dist"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             solve.solve_gp(k.copy(), y, method=method)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        solve.predictive_variance(k, k, np.ones(3))
     with pytest.raises(ValueError, match="explicit device"):
         solve.solve_gp(k.copy(), y, method="chol")
