@@ -170,6 +170,16 @@ class GramStore:
         """Dataset shape without the leading resume dimension."""
         return tuple(self.f[name].shape[1:])
 
+    def read_rows(self, name: str, r0: int, r1: int,
+                  out: Optional[np.ndarray] = None) -> np.ndarray:
+        """Row-block read [r0:r1) straight into ``out`` (float32): the
+        producer side of ``parallel.chol_dist.chol_solve_stream_from_store``."""
+        ds = self.f[name]
+        if out is None:
+            out = np.empty((r1 - r0,) + ds.shape[2:], np.float32)
+        ds.read_direct(out, source_sel=np.s_[0, r0:r1])
+        return out
+
     def dataset_names(self) -> Iterable[str]:
         return [k for k in self.f.keys() if k != "_done"]
 

@@ -4,7 +4,9 @@ PyTorch counterpart of ``exp_mnist_resnet/serve_gp.py``, with the same
 flag names plus ``--device``: loads the O(N) posterior artifact written by
 ``serving.save_posterior`` of either package and scores the config's
 validation/test splits at once; ``--variances`` adds predictive-std
-summaries after a solve-free factor rebuild on the card.
+summaries after a solve-free factor rebuild on the card, and
+``--factor_cache=dir`` writes that factor on the first run and loads it on
+later ones (the JAX package's cache files, either package's).
 
     python -m cnn_gp_tpu_torch.exp_mnist_resnet.serve_gp --config=mnist \\
         --datasets_path=... --posterior=posterior.npz --device=cuda
@@ -29,6 +31,7 @@ class ConfigMismatch(ValueError):
 
 def run(config_name: str, posterior_path: str, *, datasets_path: str,
         device, batch_size: int = 128, variances: bool = False,
+        block: int = 2048, factor_cache: str = "",
         allow_settings_mismatch: bool = False) -> dict:
     """Serve the config's splits from the posterior.  Returns
     ``{split: (accuracy, predictions, variances or None)}``; a posterior
@@ -53,8 +56,10 @@ def run(config_name: str, posterior_path: str, *, datasets_path: str,
                             device=device)
     if variances:
         t0 = time.perf_counter()
-        predictor.prepare_variances()
-        print(f"variance factor ready (no solve) in "
+        predictor.prepare_variances(block=block,
+                                    factor_cache=factor_cache or None)
+        cache = f", cache at {factor_cache}" if factor_cache else ""
+        print(f"variance factor ready (no solve{cache}) in "
               f"{time.perf_counter() - t0:.1f}s")
     results = {}
     for name, split in (("validation", dataset.validation),
@@ -94,24 +99,23 @@ def main(argv=None):
                   "also serve GP posterior variances (rebuilds the factor "
                   "once on the card, solve-free)")
     p.add_argument("--block", type=int, default=2048,
-                   help="accepted so that the JAX package's command lines "
-                        "run; the one-card factor is not blocked")
+                   help="Cholesky block size for the variance factor "
+                        "rebuild")
     p.add_argument("--factor_cache", default="",
-                   help="the on-disk factor cache: not ported yet "
-                        "(ROADMAP.md), refused")
+                   help="opt-in on-disk factor cache directory (an O(N^2) "
+                        "file): written on the first --variances run, "
+                        "loaded instead of rebuilt on later ones")
     add_bool_flag(p, "allow_settings_mismatch", False,
                   "serve a posterior recorded under other kernel settings "
                   "(cnn_gp_tpu_torch.settings)")
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on")
     a = p.parse_args(argv)
-    if a.factor_cache:
-        p.error("--factor_cache is not ported yet (ROADMAP.md, Queue 1); "
-                "run without it (the factor is rebuilt, solve-free)")
     try:
         run(a.config, a.posterior, datasets_path=a.datasets_path,
             device=resolve_device(a.device), batch_size=a.batch_size,
-            variances=a.variances,
+            variances=a.variances, block=a.block,
+            factor_cache=a.factor_cache,
             allow_settings_mismatch=a.allow_settings_mismatch)
     except ConfigMismatch as e:
         raise SystemExit(f"serve_gp: {e}") from None

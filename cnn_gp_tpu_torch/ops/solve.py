@@ -10,9 +10,14 @@ Methods:
 * ``scipy`` -- float64 LAPACK ``posv`` on the host: the oracle.
 * ``chol``  -- float64 ``torch.linalg.cholesky`` + ``cholesky_solve`` on
   the given device (the card has native FP64).
+* ``chol_ir`` -- a float32 Cholesky of the whole matrix on the given device
+  plus ``refine_iters`` rounds of iterative refinement with float64
+  residuals on the host (``refine_with_factor``).
+* ``chol_dist`` -- the Jacobi-equilibrated blocked float32 factor of
+  ``parallel/chol_dist.py`` on the given device, refined in float64 to
+  its tolerance.
 
-``chol_ir`` and ``chol_dist`` are not ported yet (``ROADMAP.md``, Queue 1)
-and raise ``NotImplementedError``.  The posterior statistics
+The posterior statistics
 (``predictive_variance``, ``gaussian_lpd``, ``log_predictive_density``,
 ``log_marginal_likelihood``, ``solve_gp_stats``) are the JAX package's
 float64 host oracles, the same numpy/scipy code.
@@ -25,8 +30,11 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import settings
+
 __all__ = ["one_hot_targets", "diag_add", "symmetrize_from_upper",
-           "solve_gp", "predict", "accuracy", "predictive_variance",
+           "solve_gp", "predict", "accuracy", "refine_with_factor",
+           "predictive_variance",
            "log_marginal_likelihood", "gaussian_lpd",
            "log_predictive_density", "solve_gp_stats"]
 
@@ -87,11 +95,49 @@ def _solve_chol(kxx: np.ndarray, y: np.ndarray, device) -> np.ndarray:
     return a
 
 
+def refine_with_factor(chol: torch.Tensor, kxx64: np.ndarray, y: np.ndarray,
+                       iters: int = 3) -> np.ndarray:
+    """Iteratively refine against a float32 Cholesky factor ``chol`` (a
+    lower-triangular tensor on its device): float64 residuals on the host,
+    correction solves through the factor."""
+    settings.check_precision_on(chol.device)
+
+    def cho_solve32(rhs):
+        b = torch.as_tensor(np.asarray(rhs, np.float32), device=chol.device)
+        return torch.cholesky_solve(b, chol).cpu().numpy().astype(np.float64)
+
+    y64 = np.asarray(y, np.float64)
+    a = cho_solve32(y)
+    if not np.all(np.isfinite(a)):
+        raise np.linalg.LinAlgError(
+            "float32 Cholesky of the Gram produced non-finite solutions "
+            "(matrix not positive-definite at float32?); add jitter or "
+            "use method='scipy'")
+    for _ in range(iters):
+        r = y64 - kxx64 @ a                     # float64 residual on host
+        a = a + cho_solve32(r)
+    return a
+
+
+def _solve_chol_ir(kxx: np.ndarray, y: np.ndarray, device,
+                   iters: int = 3) -> np.ndarray:
+    """float32 factorisation on ``device`` + float64 host refinement."""
+    chol, info = torch.linalg.cholesky_ex(torch.as_tensor(
+        np.asarray(kxx, np.float32), device=device))
+    if int(info) != 0:         # a partial factor would solve to garbage
+        chol.fill_(float("nan"))
+    return refine_with_factor(chol, np.asarray(kxx, np.float64), y,
+                              iters=iters)
+
+
 def solve_gp(kxx: np.ndarray, y: np.ndarray, jitter: float = 0.0,
-             method: str = "auto", device=None) -> np.ndarray:
+             method: str = "auto", refine_iters: int = 3,
+             device=None) -> np.ndarray:
     """Solve (Kxx + jitter*I) A = Y.  Consumes ``kxx`` (jitter in place).
 
-    ``method="chol"`` runs on ``device``, which must be given."""
+    ``chol``, ``chol_ir`` and ``chol_dist`` run on ``device``, which must be
+    given.  ``refine_iters`` is the number of refinement rounds of
+    ``chol_ir``."""
     if jitter != 0.0:
         diag_add(kxx, jitter)
     if method == "auto":
@@ -99,14 +145,19 @@ def solve_gp(kxx: np.ndarray, y: np.ndarray, jitter: float = 0.0,
     if method == "scipy":
         return _solve_scipy(np.asarray(kxx, np.float64),
                             np.asarray(y, np.float64))
+    if method in ("chol", "chol_ir", "chol_dist") and device is None:
+        raise ValueError(f"method={method!r} needs an explicit device")
     if method == "chol":
-        if device is None:
-            raise ValueError("method='chol' needs an explicit device")
         return _solve_chol(kxx, y, device)
-    if method in ("chol_ir", "chol_dist"):
-        raise NotImplementedError(
-            f"solve method {method!r} is not ported yet (ROADMAP.md, "
-            f"Queue 1); use 'scipy' or 'chol'")
+    if method == "chol_ir":
+        return _solve_chol_ir(kxx, y, device, iters=refine_iters)
+    if method == "chol_dist":
+        from ..parallel.chol_dist import chol_solve_dist
+        a, rel, _ = chol_solve_dist(kxx, y, device=device)  # jitter applied
+        if rel > 1e-6:
+            print(f"chol_dist: refinement stagnated at rel residual {rel:.2e}"
+                  " — consider a larger --jitter")
+        return a
     raise ValueError(f"unknown solve method {method!r}")
 
 

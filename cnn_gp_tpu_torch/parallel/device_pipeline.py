@@ -11,9 +11,9 @@ runs on that resident tensor:
 
 Nothing is padded: ``_tile_body`` slices ragged edge tiles and the kernel
 takes any tile shape.  Memory: the float32 Gram is N^2 * 4 bytes (1 GB at
-N = 16,384); ``refine=True`` replaces it by its float64 copy and adds the
-float64 factor, 16 N^2 bytes in all plus the cross Grams (4.6 GB measured
-at 16,384; about 44 GB at 50k).
+N = 16,384); ``refine=True`` converts it to float64 (12 N^2 bytes while
+both exist) and factors that copy in place (``chol_dist.CardFactor``), so
+the peak is 12 N^2 bytes plus the cross Grams.
 """
 
 from __future__ import annotations
@@ -101,9 +101,9 @@ def classify_device(model, train_x, train_y, *splits,
         s = float(kxx.diagonal().mean())
         k = kxx.div_(s)   # scale-normalised for float32 conditioning
         k.diagonal().add_(jitter)
-    factor = CardFactor(k)     # raises rather than return NaN factors
+    factor = CardFactor.of(k)  # in place; raises rather than return NaNs
     del k
-    a = torch.cholesky_solve(y.to(dtype), factor.l)
+    a = factor.solve_dev(y)
     accs = []
     for kz, (_, labels) in zip(kzx, splits):
         pred = torch.argmax((kz.to(dtype) / s) @ a, dim=1).cpu().numpy()
@@ -116,6 +116,9 @@ def classify_device(model, train_x, train_y, *splits,
             model, xz, device=device, batch_size=batch_size,
             progress=False), dtype=dtype, device=device)
         # K + jr I = s * (L L^T), so the quadratic form is ||L^-1 k_xz||^2/s
-        v = kzz - factor.forward_sumsq(kz.to(dtype).T) / s
+        # (whitened per block of 512 query columns)
+        sumsq = torch.cat([factor.forward_sumsq(kz[c0:c0 + 512].T)
+                           for c0 in range(0, len(kz), 512)])
+        v = kzz - sumsq / s
         var.append(torch.clamp(v, min=0.0).cpu().numpy())
     return accs, var

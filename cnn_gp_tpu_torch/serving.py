@@ -16,12 +16,18 @@ equilibration scalings ``s`` [N] and the training inputs -- saved once
 
 The artifact is a flat .npz (float32 inputs, float64 posterior) with a
 format version and the kernel settings snapshot recorded for provenance.
-The on-disk factor cache of the JAX package is not ported (ROADMAP.md).
+The optional on-disk factor cache (``prepare_variances(factor_cache=dir)``)
+has the JAX package's files (``l.npy``, ``diags.npy``, ``meta.json``) with
+``n_devices = 1``, so a cache written on a one-device JAX mesh loads here
+and the reverse.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
+import os
 from typing import Optional
 
 import numpy as np
@@ -31,6 +37,7 @@ from . import settings
 __all__ = ["save_posterior", "load_posterior", "GPPredictor", "Posterior"]
 
 FORMAT_VERSION = 1
+_FACTOR_CACHE_VERSION = 2   # the JAX package's: meta with model_sha256
 
 
 @dataclasses.dataclass
@@ -147,31 +154,129 @@ class GPPredictor:
     def classify(self, z) -> np.ndarray:
         return np.argmax(self.scores(z), axis=1)
 
-    def prepare_variances(self, factor_cache: Optional[str] = None) -> None:
+    def prepare_variances(self, block: int = 2048,
+                          factor_cache: Optional[str] = None,
+                          write_cache: bool = True) -> None:
         """Rebuild the factor from the stored training set and scalings:
-        assembly and Cholesky on the card, no solve (the posterior is
-        already solved).  Required once per process before
-        :meth:`variances`.  ``factor_cache`` (the JAX package's on-disk
-        factor) is not ported and is refused."""
+        assembly and blocked Cholesky on the card, no solve (the posterior
+        is already solved).  Required once per process before
+        :meth:`variances`.
+
+        ``factor_cache`` (opt-in) names a directory holding the factor as
+        an O(N^2) float32 file: when present and matching this posterior,
+        model, geometry and settings, the factor is loaded instead of
+        rebuilt; when absent, it is written after the rebuild
+        (``write_cache=False`` disables that).  A cache that is present but
+        does not match is refused, never quietly rebuilt."""
         from .parallel.device_large import rebuild_factor
 
-        if factor_cache is not None:
-            raise NotImplementedError(
-                "factor_cache is not ported yet (ROADMAP.md, Queue 1: the "
-                "factor cache comes with the single-card chol_dist "
-                "decision); call prepare_variances() without it")
         p = self.posterior
         if p.scalings is None:
             raise ValueError("posterior was saved without scalings; "
                              "variance serving needs them (save_posterior"
                              "(..., scalings=...))")
+        if factor_cache and self._try_load_factor_cache(factor_cache, block):
+            return
         factor, x_all, s_dev = rebuild_factor(
             self.model, p.train_x, p.scalings, batch_size=self.batch_size,
-            device=self.device)
+            block=block, device=self.device)
         self._factor = factor
         # pin the settings at rebuild time: the variance sweeps must whiten
         # cross-columns of the SAME kernel the factor holds
         self._var_ctx = (x_all, s_dev, settings.snapshot())
+        if factor_cache and write_cache:
+            self._write_factor_cache(factor_cache)
+
+    def _cache_meta(self, block: int, n_devices: int = 1) -> dict:
+        """Identity of a factor cache, as the JAX package writes it: the
+        posterior content (scalings and training-set digest), the model's
+        array leaves (keyed and ordered as the JAX pytree flattens them),
+        the factor geometry and the settings snapshot."""
+        from .convert import leaf_items
+
+        p = self.posterior
+        h = hashlib.sha256()
+        h.update(np.ascontiguousarray(p.scalings).tobytes())
+        h.update(np.ascontiguousarray(p.train_x).tobytes())
+        mh = hashlib.sha256()
+        for key, v in leaf_items(self.model):
+            mh.update(key.encode())
+            mh.update(np.ascontiguousarray(
+                v.detach().cpu().numpy()).tobytes())
+        return {
+            "version": _FACTOR_CACHE_VERSION,
+            "n": p.n,
+            "block": int(block),
+            "batch_size": int(self.batch_size),
+            "n_devices": int(n_devices),
+            "posterior_sha256": h.hexdigest(),
+            "model_sha256": mh.hexdigest(),
+            "settings_snapshot": repr(settings.snapshot()),
+        }
+
+    def _try_load_factor_cache(self, path, block: int) -> bool:
+        """Load a factor cache; False if absent.  Raises on a present but
+        mismatched one."""
+        import torch
+
+        from .parallel.chol_dist import CardFactor
+
+        meta_p = os.path.join(path, "meta.json")
+        if not os.path.exists(meta_p):
+            return False
+        with open(meta_p) as fh:
+            meta = json.load(fh)
+        want = self._cache_meta(block)
+        if meta != want:
+            bad = [k for k in want if meta.get(k) != want[k]]
+            raise ValueError(
+                f"factor cache at {path} does not match this posterior/"
+                f"geometry (mismatched: {bad}); delete it or pass the "
+                f"matching block/batch_size")
+        p = self.posterior
+        f = CardFactor(p.n, block, pad_to=self.batch_size,
+                       device=self.device)
+        l_mm = np.lib.format.open_memmap(os.path.join(path, "l.npy"),
+                                         mode="r")
+        if l_mm.shape != (f.n_pad, f.n_pad):
+            raise ValueError(f"factor cache shape {l_mm.shape} != computed "
+                             f"n_pad {f.n_pad}")
+        l = f._upload_rows(lambda r0, r1: l_mm[r0:r1])
+        # the diagonal blocks the solves use are the stored diag stack
+        diags = np.load(os.path.join(path, "diags.npy"))
+        bs = f.block
+        for kb in range(f.n_pad // bs):
+            l[kb * bs:(kb + 1) * bs, kb * bs:(kb + 1) * bs] = torch.tril(
+                torch.from_numpy(diags[kb]).to(f.device))
+        f.l = l
+        self._factor = f
+        x_all = torch.as_tensor(np.asarray(p.train_x, np.float32),
+                                device=f.device).contiguous()
+        s_dev = torch.as_tensor(np.asarray(p.scalings, np.float32),
+                                device=f.device)
+        self._var_ctx = (x_all, s_dev, settings.snapshot())
+        return True
+
+    def _write_factor_cache(self, path) -> None:
+        """Persist the live factor: the [n_pad, n_pad] lower triangle
+        copied to a memmapped .npy in bounded row blocks (never a second
+        whole host copy), the diagonal-block stack, and the identity
+        metadata."""
+        f = self._factor
+        os.makedirs(path, exist_ok=True)
+        meta = self._cache_meta(f.block)
+        rows = min(4096, f.n_pad)
+        l_mm = np.lib.format.open_memmap(
+            os.path.join(path, "l.npy"), mode="w+", dtype=np.float32,
+            shape=(f.n_pad, f.n_pad))
+        for r0 in range(0, f.n_pad, rows):
+            l_mm[r0:r0 + rows] = f.l[r0:r0 + rows].cpu().numpy()
+        l_mm.flush()
+        del l_mm
+        np.save(os.path.join(path, "diags.npy"),
+                f.diag_blocks().cpu().numpy())
+        with open(os.path.join(path, "meta.json"), "w") as fh:
+            json.dump(meta, fh)
 
     def variances(self, z) -> np.ndarray:
         """GP posterior variances ``k_zz - k_zx (K + jr I)^-1 k_xz``

@@ -180,12 +180,16 @@ def test_scores_regen_matches_jax(serving_data, tile_calls):
 
 
 def test_gram_matvec_regen_matches_jax(serving_data):
+    """The raw K @ a and the scaled, diagonal-pinned M @ a."""
     jm, tm, x, _, _, a = serving_data
     want = np.asarray(jmatvec(jm, x, a, batch_size=16))
     got = gram_matvec_regen(tm, x, a, batch_size=16, device=CPU)
     assert scaled_err(got, want) < GRAM_TOL
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gram_matvec_regen(tm, x, a, s=np.ones(len(x)), device=CPU)
+    s = np.random.RandomState(4).uniform(0.5, 1.5, len(x)).astype(
+        np.float32)
+    want = np.asarray(jmatvec(jm, x, a, batch_size=16, s=s))
+    got = gram_matvec_regen(tm, x, a, batch_size=16, s=s, device=CPU)
+    assert scaled_err(got, want) < GRAM_TOL
 
 
 def test_rebuild_factor_variances_match_oracle(serving_data, tile_calls):
@@ -223,7 +227,7 @@ def test_card_factor_operations():
     f = rng.randn(30, 60)
     m = f @ f.T / 60 + np.eye(30)
     w = rng.randn(30, 5)
-    fac = CardFactor(torch.as_tensor(m))
+    fac = CardFactor.of(torch.tensor(m))   # factored in place: a copy
     l = scipy.linalg.cholesky(m, lower=True)
     v = scipy.linalg.solve_triangular(l, w, lower=True)
     np.testing.assert_allclose(
@@ -233,4 +237,4 @@ def test_card_factor_operations():
                                rtol=1e-10, atol=1e-12)
     assert abs(fac.log_diag_sum() - np.log(np.diagonal(l)).sum()) < 1e-12
     with pytest.raises(np.linalg.LinAlgError, match="positive-definite"):
-        CardFactor(torch.as_tensor(-m))
+        CardFactor.of(torch.tensor(-m))

@@ -89,11 +89,81 @@ def test_classify_e2e_matches_jax(refine, synthetic, capsys):
         assert abs(stds[split] - s) <= STD_RTOL * s, (split, stds, want_std)
 
 
-@pytest.mark.parametrize("flag", ["--large", "--save_posterior=p.npz"])
+@pytest.mark.parametrize("flag", ["--save_posterior=p.npz"])
 def test_classify_e2e_refuses_large(flag, capsys):
+    """--save_posterior without --large is refused, not dropped."""
     with pytest.raises(SystemExit):
         classify_e2e.main(["--config=synthetic", flag, "--device=cpu"])
-    assert "ROADMAP" in capsys.readouterr().err
+    assert "--save_posterior needs --large" in capsys.readouterr().err
+
+
+def test_classify_e2e_large_then_serve_gp_factor_cache(synthetic, tmp_path,
+                                                       capsys, monkeypatch):
+    """classify_e2e --large --save_posterior: JAX's classify_device_large
+    accuracies (one-device mesh, same seed); then serve_gp --variances
+    --factor_cache twice: the first run rebuilds the factor and writes the
+    cache, the second loads it without a rebuild; both serve the large
+    run's accuracies and mean stds."""
+    from cnn_gp_tpu.parallel import classify_device_large as jcdl
+    from cnn_gp_tpu.parallel import make_mesh
+    from cnn_gp_tpu_torch.parallel import device_large
+    _, ds, jm = synthetic
+    post = str(tmp_path / "p.npz")
+    classify_e2e.main(["--config=synthetic", f"--batch_size={B}", "--large",
+                       "--block=32", "--variances", "--residual_sample_seed=0",
+                       f"--save_posterior={post}", "--device=cpu"])
+    out = capsys.readouterr().out
+    assert "rel residual" in out and f"posterior saved to {post}" in out
+    accs, stds = parse(out)
+    want, _ = jcdl(jm, ds.train.images, ds.train.labels,
+                   (ds.validation.images, ds.validation.labels),
+                   (ds.test.images, ds.test.labels), batch_size=B, block=32,
+                   jitter=1e-6, residual_sample_seed=0, verbose=False,
+                   mesh=make_mesh(n_devices=1))
+    assert [accs["validation"], accs["test"]] == want
+    cache = tmp_path / "fc"
+    argv = ["--config=synthetic", f"--posterior={post}", f"--batch_size={B}",
+            "--variances", "--block=32", f"--factor_cache={cache}",
+            "--device=cpu"]
+    for run in ("write", "load"):
+        if run == "load":
+            def refuse(*a, **k):
+                raise AssertionError("the factor was rebuilt, not loaded")
+            monkeypatch.setattr(device_large, "rebuild_factor", refuse)
+        serve_gp.main(argv)
+        out = capsys.readouterr().out
+        assert f"cache at {cache}" in out
+        assert (cache / "l.npy").exists()
+        served_accs, served_stds = parse(out)
+        assert served_accs == accs, run
+        for split, s in stds.items():
+            assert abs(served_stds[split] - s) <= STD_RTOL * s, (run, split)
+
+
+def test_device_large_scale_script(tmp_path, capsys):
+    """The scale script's classify run (per-phase seconds and peak lines,
+    --check_scipy agreement 1.0, variances against the float64 oracle) and
+    its --serve_posterior protocol in the same process: the served
+    accuracies are the classify run's."""
+    from cnn_gp_tpu_torch.scripts import device_large_scale as dls
+    post = str(tmp_path / "p.npz")
+    data = ["--config=synthetic", "--n_train=80", "--n_test=40",
+            "--n_validation=16", f"--batch_size={B}", "--block=32",
+            "--device=cpu"]
+    res = dls.main(data + ["--check_scipy", "--variances",
+                           "--residual_sample_seed=1",
+                           f"--save_posterior={post}"])
+    out = capsys.readouterr().out
+    for phase in ("diag+scale", "assemble", "factor", "solve+refine",
+                  "variances+scores", "predict"):
+        assert f"phase {phase}: " in out, phase
+    assert "prediction agreement: 1.0" in out
+    dev = float(re.search(r"max \|dev-f64\|/scale = ([\d.e+-]+)", out)[1])
+    assert dev < 1e-5
+    served = dls.main(data + [f"--serve_posterior={post}"])["served"]
+    assert [acc for acc, _, _ in served] == res["accs"]
+    for (_, pred, _), want in zip(served, res["info"]["predictions"]):
+        np.testing.assert_array_equal(pred, want)
 
 
 @pytest.fixture()
@@ -143,10 +213,6 @@ def test_serve_gp_refuses_config_mismatch(posterior, capsys):
     with pytest.raises(SystemExit, match="solved under config"):
         serve_gp.main(["--config=mnist", f"--posterior={path}",
                        "--device=cpu"])
-    with pytest.raises(SystemExit):
-        serve_gp.main(["--config=synthetic", f"--posterior={path}",
-                       "--factor_cache=fc", "--device=cpu"])
-    assert "ROADMAP" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("script", ["classify_e2e", "serve_gp"])

@@ -5,6 +5,9 @@ and against the port's ``apply_kernel``, and the wrapper's device rules.
 The CUDA kernel itself is checked on the card by tests/test_torch_cuda.py
 and chip_smoke.py."""
 
+import hashlib
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -15,6 +18,7 @@ from cnn_gp_tpu.data import synthetic_arrays
 from cnn_gp_tpu.ops import megakernel as jmk
 from cnn_gp_tpu_torch.kernels import apply_kernel
 from cnn_gp_tpu_torch.ops import megakernel as tmk
+from cnn_gp_tpu_torch.ops.boxfilter import box_filter_2d
 
 
 def small(M):
@@ -80,16 +84,54 @@ def _scaled(got, want):
         want).max()
 
 
+def _tile_float64(spec, x, z, mask):
+    """The same tile in float64 with the exact arc-cosine: the value both
+    float32 evaluations approximate."""
+    x, z = torch.from_numpy(x).double(), torch.from_numpy(z).double()
+    xy = (x[:, None] * z[None]).mean(2)
+    xx = (x * x).mean(1)[:, None].expand_as(xy)
+    yy = (z * z).mean(1)[None].expand_as(xy)
+    k = spec.kernel_size
+    for vw, vb in spec.layer_vw_vb:
+        xy, xx, yy = (box_filter_2d(m, k, 1, (k // 2, k // 2)) * (vw / k ** 2)
+                      + vb for m in (xy, xx, yy))
+        norm = torch.sqrt(xx * yy)
+        theta = torch.acos(torch.clamp(xy / norm, -1.0, 1.0))
+        new_xy = (norm * torch.sin(theta) + (math.pi - theta) * xy) / (
+            2 * math.pi)
+        xx, yy = xx / 2, yy / 2
+        xy = new_xy if mask is None else torch.where(
+            torch.from_numpy(mask)[:, :, None, None], xx, new_xy)
+    r_scale = spec.readout_vw / spec.readout_k ** 2
+    return (xy.sum((-2, -1)) * r_scale + spec.readout_vb).numpy()
+
+
+def _digest(a) -> str:
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
+
+
 @pytest.mark.parametrize("use_mask", [False, True])
 def test_reference_matches_jax_interpret(use_mask):
+    """The port's plain version against the Pallas kernel in interpret
+    mode (1e-5 of max|K|), and each of them against the float64 tile
+    (1e-5 as well; both sit near 2e-7 of it).  A failure names the side
+    that moved: it prints both outputs' digests and each side's error
+    against the float64 tile."""
     x, z, mask = _pair(use_mask)
     want = np.asarray(jmk.gram_tile(jmk.match(small(G)), x, z, mask,
                                     rows_per_step=8, interpret=True))
     got = tmk.gram_tile_reference(
         tmk.match(small(T)), torch.from_numpy(x), torch.from_numpy(z),
-        None if mask is None else torch.from_numpy(mask))
+        None if mask is None else torch.from_numpy(mask)).numpy()
     assert got.shape == (8, 128)
-    assert _scaled(got.numpy(), want) < 1e-5
+    exact = _tile_float64(tmk.match(small(T)), x, z, mask)
+    errs = {"jax": _scaled(want, exact), "port": _scaled(got, exact)}
+    record = (f"sha256 jax {_digest(want)}, port {_digest(got)}; against "
+              f"the float64 tile: jax {errs['jax']:.4e}, port "
+              f"{errs['port']:.4e}")
+    assert _scaled(got, want) < 1e-5, record
+    for side, err in errs.items():
+        assert err < 1e-5, f"{side} moved: {record}"
 
 
 @pytest.mark.parametrize("use_mask", [False, True])

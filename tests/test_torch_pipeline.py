@@ -54,7 +54,7 @@ def merged_store(tmp_path_factory):
     return cfg, paths[0], str(tmp)
 
 
-@pytest.mark.parametrize("solver", ["scipy", "chol"])
+@pytest.mark.parametrize("solver", ["scipy", "chol", "chol_ir", "chol_dist"])
 def test_pipeline_predictions_match_jax(solver, merged_store,
                                         jax_predictions):
     cfg, path, root = merged_store
@@ -101,11 +101,72 @@ def test_cli_refuses_missing_cuda(script, tmp_path, monkeypatch):
 
 
 def test_classify_refuses_unported_solvers():
+    """Every card solver needs an explicit device (none falls back to the
+    CPU); an unknown method is refused."""
     from cnn_gp_tpu_torch.ops import solve
     k = np.eye(3)
     y = solve.one_hot_targets(np.array([0, 1, 0]))
-    for method in ("chol_ir", "chol_dist"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    for method in ("chol", "chol_ir", "chol_dist"):
+        with pytest.raises(ValueError, match="explicit device"):
             solve.solve_gp(k.copy(), y, method=method)
-    with pytest.raises(ValueError, match="explicit device"):
-        solve.solve_gp(k.copy(), y, method="chol")
+    with pytest.raises(ValueError, match="unknown solve method"):
+        solve.solve_gp(k.copy(), y, method="cg", device="cpu")
+
+
+@pytest.mark.parametrize("stream", ["--stream", "--nostream"])
+def test_classify_gp_chol_dist_statistics_match_jax(stream, merged_store,
+                                                    capsys, monkeypatch):
+    """classify_gp --solver=chol_dist --variances --evidence (the float32
+    card factor, streamed or read whole) against the JAX package's
+    chol_dist store solver and statistics on a one-device mesh: the same
+    predictions, variances within 1e-5 * mean(k_zz), evidence within rtol
+    5e-4; and against the float64 oracle of --solver=scipy."""
+    from cnn_gp_tpu.data import GramStore as JStore
+    from cnn_gp_tpu.parallel import chol_dist as jcd
+    from cnn_gp_tpu.parallel import make_mesh
+    cfg, path, root = merged_store
+    monkeypatch.setattr(classify_gp.configs, "load", lambda name: cfg)
+    jitter = 1e3
+    classify_gp.main(["--config=synthetic", f"--in_path={path}",
+                      f"--datasets_path={root}", "--solver=chol_dist",
+                      stream, "--variances", "--evidence",
+                      f"--jitter={jitter}", "--device=cpu"])
+    out = capsys.readouterr().out
+    assert "train log evidence:" in out and "predictive std" in out
+    assert ("[stream]" in out) == (stream == "--stream")
+    res = classify_gp.run(cfg, path, datasets_path=root, device="cpu",
+                          solver="chol_dist", variances=True, evidence=True,
+                          jitter=jitter, stream=stream == "--stream")
+    oracle = classify_gp.run(cfg, path, datasets_path=root, device="cpu",
+                             solver="scipy", variances=True, evidence=True,
+                             jitter=jitter)
+    y = jsolve.one_hot_targets(JData("", tiny_config(G)).train.labels)
+    with JStore(path, "r") as f:
+        ja, _, _, jf, js = jcd.chol_solve_dist_from_store(
+            f, "Kxx", y, jitter=jitter, mesh=make_mesh(n_devices=1),
+            check_finite=True, return_factor=True)
+        jev = jcd.evidence_from_factor(jf, js, y, ja)
+        for split, kzx, kzz in (("validation", "Kxvx", "Kv_diag"),
+                                ("test", "Kxtx", "Kt_diag")):
+            kz, dz = f.read(kzx), f.read(kzz)
+            jvar = jcd.variances_from_cross_host(jf, js, kz, dz)
+            scale = float(np.mean(dz))
+            for want in (jvar, oracle["variances"][split]):
+                assert np.abs(res["variances"][split] - want).max() \
+                    < 1e-5 * scale
+            np.testing.assert_array_equal(res[split][1],
+                                          jsolve.predict(kz, ja))
+            np.testing.assert_array_equal(res[split][1], oracle[split][1])
+    for want in (jev, oracle["log_evidence"]):
+        np.testing.assert_allclose(res["log_evidence"], want, rtol=5e-4)
+
+
+def test_classify_gp_flag_rules():
+    """JAX's flag rules: the statistics need --solver=scipy or chol_dist;
+    --lpd needs --jitter > 0."""
+    assert classify_gp.flag_error("chol_dist", 0.0, True, True, False) is None
+    for solver in ("chol", "chol_ir"):
+        assert "chol_dist" in classify_gp.flag_error(solver, 1.0, False,
+                                                     True, False)
+    assert "--jitter > 0" in classify_gp.flag_error("chol_dist", 0.0, False,
+                                                    False, True)

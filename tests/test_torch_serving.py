@@ -2,7 +2,8 @@
 package's: a posterior solved by JAX's classify_device_large on the
 8-device CPU mesh and saved by JAX's save_posterior is served by the
 port's GPPredictor with the same predictions, and a posterior the port
-saves loads in JAX's load_posterior."""
+saves loads in JAX's load_posterior; the on-disk factor cache loads both
+ways."""
 
 import jax
 import numpy as np
@@ -10,6 +11,7 @@ import pytest
 import torch
 
 import cnn_gp_tpu as G
+import cnn_gp_tpu_torch as T
 from cnn_gp_tpu import serving as jserving
 from cnn_gp_tpu import settings as jsettings
 from cnn_gp_tpu.data import synthetic_arrays
@@ -171,13 +173,139 @@ def test_settings_mismatch_refused(solved, tmp_path):
         GPPredictor(solved["model"], p, device=CPU)
 
 
-def test_factor_cache_refused(solved, tmp_path):
-    p = load_posterior(solved["path"])
-    pred = GPPredictor(solved["model"], p, batch_size=16, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pred.prepare_variances(factor_cache=str(tmp_path / "fc"))
+def _port_predictor(solved, p=None):
+    p = p or load_posterior(solved["path"])
+    return GPPredictor(solved["model"], p, batch_size=16, device=CPU)
+
+
+def _no_rebuild(monkeypatch, module):
+    """Make a rebuild of the factor fail, to show a cache was loaded."""
+    def refuse(*a, **k):
+        raise AssertionError("the factor was rebuilt, not loaded")
+    monkeypatch.setattr(module, "rebuild_factor", refuse)
+
+
+def test_factor_cache_round_trip(solved, tmp_path):
+    """prepare_variances writes the JAX package's three files; a fresh
+    predictor loads them without a rebuild and serves bit-identical
+    variances."""
+    from cnn_gp_tpu_torch.parallel import device_large
+    cache = str(tmp_path / "fc")
+    first = _port_predictor(solved)
+    first.prepare_variances(block=32, factor_cache=cache)
+    want = first.variances(solved["zx"])
+    assert sorted(p.name for p in (tmp_path / "fc").iterdir()) == [
+        "diags.npy", "l.npy", "meta.json"]
+    l = np.load(tmp_path / "fc" / "l.npy")
+    assert l.shape == (96, 96) and (np.triu(l, 1) == 0).all()
+    assert np.load(tmp_path / "fc" / "diags.npy").shape == (3, 32, 32)
+    second = _port_predictor(solved)
+    mp = pytest.MonkeyPatch()
+    with mp.context() as m:
+        _no_rebuild(m, device_large)
+        second.prepare_variances(block=32, factor_cache=cache)
+    np.testing.assert_array_equal(second.variances(solved["zx"]), want)
+
+
+@pytest.mark.parametrize("change", ["block", "meta", "batch_size"])
+def test_factor_cache_mismatch_refused(solved, tmp_path, change):
+    """A present cache that does not match is refused, never rebuilt."""
+    import json
+    cache = tmp_path / "fc"
+    _port_predictor(solved).prepare_variances(block=32,
+                                              factor_cache=str(cache))
+    pred = _port_predictor(solved)
+    block = 32
+    if change == "block":
+        block = 16
+    elif change == "batch_size":
+        pred.batch_size = 32
+    else:
+        meta = json.loads((cache / "meta.json").read_text())
+        meta["posterior_sha256"] = "0" * 64
+        (cache / "meta.json").write_text(json.dumps(meta))
+    with pytest.raises(ValueError, match="does not match"):
+        pred.prepare_variances(block=block, factor_cache=str(cache))
     assert pred._factor is None
-    assert not (tmp_path / "fc").exists()
+
+
+def test_jax_written_cache_loads_in_port(solved, tmp_path, monkeypatch):
+    """A cache that JAX writes on a one-device mesh loads in the port
+    (no rebuild) and serves JAX's variances within 1e-5 * mean(diag
+    Kxx)."""
+    from cnn_gp_tpu.parallel import make_mesh
+    from cnn_gp_tpu_torch.parallel import device_large
+    cache = str(tmp_path / "fc")
+    jp = jserving.load_posterior(solved["path"])
+    jpred = jserving.GPPredictor(jmodel(), jp, batch_size=16)
+    jpred.prepare_variances(mesh=make_mesh(n_devices=1), block=32,
+                            factor_cache=cache)
+    want = jpred.variances(solved["zx"])
+    pred = _port_predictor(solved)
+    _no_rebuild(monkeypatch, device_large)
+    pred.prepare_variances(block=32, factor_cache=cache)
+    got = pred.variances(solved["zx"])
+    assert np.abs(got - want).max() < 1e-5 * np.mean(
+        np.diagonal(solved["kxx"]))
+
+
+def test_port_written_cache_loads_in_jax(solved, tmp_path, monkeypatch):
+    """A cache the port writes loads in JAX on a one-device mesh (no
+    rebuild) and serves the port's variances within 1e-5 * mean(diag
+    Kxx)."""
+    from cnn_gp_tpu.parallel import device_large as jdl
+    from cnn_gp_tpu.parallel import make_mesh
+    cache = str(tmp_path / "fc")
+    pred = _port_predictor(solved)
+    pred.prepare_variances(block=32, factor_cache=cache)
+    want = pred.variances(solved["zx"])
+    jpred = jserving.GPPredictor(jmodel(),
+                                 jserving.load_posterior(solved["path"]),
+                                 batch_size=16)
+    _no_rebuild(monkeypatch, jdl)
+    jpred.prepare_variances(mesh=make_mesh(n_devices=1), block=32,
+                            factor_cache=cache)
+    got = jpred.variances(solved["zx"])
+    assert np.abs(got - want).max() < 1e-5 * np.mean(
+        np.diagonal(solved["kxx"]))
+
+
+def _learnable(M):
+    return M.Sequential(M.Conv2d(3, var_weight=1.3, learnable=True), M.ReLU(),
+                        M.Conv2d(8, padding=0, var_bias=0.2, learnable=True))
+
+
+def _mixture(M):
+    return M.Mixture([M.Sequential(M.Conv2d(8, padding=0, learnable=True)),
+                      M.Sequential(M.Conv2d(3), M.ReLU(),
+                                   M.Conv2d(8, padding=0))],
+                     np.asarray([0.3, -0.2], np.float32))
+
+
+@pytest.mark.parametrize("which", ["learnable", "mixture", "paper"])
+def test_cache_meta_matches_jax(which, tmp_path):
+    """The cache identity, model_sha256 included, is JAX's for the same
+    posterior and model: the port hashes the keys and bytes that
+    jax.tree_util.tree_flatten_with_path gives for the JAX model."""
+    import configs as jconfigs
+    from cnn_gp_tpu_torch import configs
+    if which == "paper":
+        jm = jconfigs.load("mnist_paper_convnet_gp").initial_model
+        tm = configs.load("mnist_paper_convnet_gp").initial_model
+    else:
+        build = {"learnable": _learnable, "mixture": _mixture}[which]
+        jm, tm = build(G), build(T)
+    rng = np.random.RandomState(0)
+    x = rng.randn(5, 1, 8, 8).astype(np.float32)
+    path = save_posterior(tmp_path / "p", train_x=x, alpha=rng.randn(5, 2),
+                          scalings=rng.rand(5))
+    want = jserving.GPPredictor(jm, jserving.load_posterior(path),
+                                batch_size=16)._cache_meta(32, 1)
+    got = GPPredictor(tm, load_posterior(path), batch_size=16,
+                      device=CPU)._cache_meta(32)
+    assert got == want
+    if which != "paper":
+        assert jax.tree_util.tree_leaves(jm)      # the hash covers leaves
 
 
 def test_empty_query_batches(solved):
