@@ -208,3 +208,220 @@ def test_wrapper_checks_inputs(bad):
         z = z.to("meta")
     with pytest.raises(ValueError):
         tmk.gram_tile(spec, x, z, mask)
+
+
+def _bits(t: torch.Tensor) -> np.ndarray:
+    return t.contiguous().view(torch.int32).numpy()
+
+
+def _diag_case(name):
+    """(port model, JAX model, x, z) for the pre-pass tests."""
+    if name == "C=3 8x8":
+        x, z, _ = _pair(False)
+        return small(T), small(G), x, z[:16]
+    import configs
+    from cnn_gp_tpu_torch.configs import load
+    x, _, _, _ = synthetic_arrays(n_train=5, n_test=0)
+    z, _, _, _ = synthetic_arrays(n_train=3, n_test=0, seed=4)
+    return (load("mnist_paper_convnet_gp").initial_model,
+            configs.load("mnist_paper_convnet_gp").initial_model, x, z)
+
+
+@pytest.mark.parametrize("name", ["C=3 8x8", "paper"])
+def test_diag_maps_reference_equals_pair_recursion(name):
+    """The pre-pass's plain version gives, bit for bit, the xx and yy of
+    the per-pair recursion at every layer."""
+    model, _, x, z = _diag_case(name)
+    spec = tmk.match(model)
+    tx, tz = torch.from_numpy(x), torch.from_numpy(z)
+    record = []
+    tmk._recursion(spec, tx, tz, None, record)
+    dx, dz = tmk.diag_maps_reference(spec, tx), tmk.diag_maps_reference(
+        spec, tz)
+    assert dx.shape == (len(spec.layer_vw_vb),) + x.shape[:1] + x.shape[2:]
+    assert len(record) == len(spec.layer_vw_vb)
+    for layer, (xx, yy) in enumerate(record):
+        np.testing.assert_array_equal(_bits(xx[:, 0]), _bits(dx[layer]))
+        np.testing.assert_array_equal(_bits(yy[0]), _bits(dz[layer]))
+
+
+@pytest.mark.parametrize("name", ["C=3 8x8", "paper"])
+def test_diag_maps_readout_matches_jax_diag(name):
+    """The readout of the last halved map is the JAX package's diagonal
+    kernel (model(x, diag=True), on the CPU) within 1e-5 of value
+    scale."""
+    model, jmodel, x, _ = _diag_case(name)
+    spec = tmk.match(model)
+    half = tmk.diag_maps_reference(spec, torch.from_numpy(x))[-1] * 0.5
+    got = (half.sum(dim=(-2, -1)) * (spec.readout_vw / spec.readout_k ** 2)
+           + spec.readout_vb).numpy()
+    want = np.asarray(jmodel(x, diag=True))
+    assert got.shape == want.shape == (len(x),)
+    assert _scaled(got, want) < 1e-5
+
+
+class _FakeLib:
+    """Stands in for the built kernel libraries: records each launch."""
+
+    def __init__(self, pair_error=0):
+        self.calls = []
+        self.pair_error = pair_error
+
+    def cnn_gp_diag_maps(self, *args):
+        self.calls.append(("pre-pass", args))
+        return 0
+
+    def cnn_gp_pair_tile(self, *args):
+        self.calls.append(("pair", args))
+        return self.pair_error
+
+    def error_string(self, code):
+        return "stub error"
+
+
+@pytest.fixture()
+def fake_lib(monkeypatch):
+    """A stubbed ``_lib``; both plain versions raise if called."""
+    lib = _FakeLib()
+    monkeypatch.setattr(tmk, "_lib", lib)
+
+    def plain(*a, **k):
+        raise AssertionError("the CUDA path called a plain version")
+
+    monkeypatch.setattr(tmk, "gram_tile_reference", plain)
+    monkeypatch.setattr(tmk, "diag_maps_reference", plain)
+    return lib
+
+
+def test_cuda_path_launches_prepass_then_pair(fake_lib, monkeypatch):
+    """Pre-pass of x, pre-pass of z, then the pair kernel on their
+    [L, b, H, W] scratch maps; one pair launch, two pre-passes."""
+    spec = tmk.match(small(T))
+    x, z = torch.zeros(4, 3, 8, 8), torch.ones(5, 3, 8, 8)
+    mask = torch.zeros(4, 5, dtype=torch.bool)
+    scratch = []
+    launch_diag = tmk._launch_diag_maps
+
+    def spy(*args):
+        out = launch_diag(*args)
+        scratch.append(out)
+        return out
+
+    monkeypatch.setattr(tmk, "_launch_diag_maps", spy)
+    before = (tmk.launches, tmk.prepass_launches)
+    out = tmk._launch_kernels(spec, x, z, mask, 0)
+    assert [name for name, _ in fake_lib.calls] == ["pre-pass", "pre-pass",
+                                                    "pair"]
+    assert [tuple(s.shape) for s in scratch] == [(2, 4, 8, 8), (2, 5, 8, 8)]
+    assert all(s.dtype == torch.float32 for s in scratch)
+    (_, pre_x), (_, pre_z), (_, pair) = fake_lib.calls
+    assert pre_x[0] == x.data_ptr() and pre_x[2] == scratch[0].data_ptr()
+    assert pre_z[0] == z.data_ptr() and pre_z[2] == scratch[1].data_ptr()
+    assert pre_x[3:8] == (4, 3, 8, 3, 2) and pre_z[3:8] == (5, 3, 8, 3, 2)
+    assert pair[:5] == (x.data_ptr(), z.data_ptr(), scratch[0].data_ptr(),
+                        scratch[1].data_ptr(), mask.data_ptr())
+    assert pair[7:13] == (4, 5, 3, 8, 3, 2)
+    assert pair[13:15] == (1.0 / 64, 0.0)
+    assert out.shape == (4, 5) and out.dtype == torch.float32
+    assert (tmk.launches, tmk.prepass_launches) == (before[0] + 1,
+                                                    before[1] + 2)
+
+
+@pytest.mark.parametrize("kind,n_prepass", [("z is x", 1), ("same view", 1),
+                                            ("other rows", 2),
+                                            ("prefix of x", 2)])
+def test_cuda_path_prepass_once_when_z_is_x(fake_lib, kind, n_prepass):
+    """z with x's storage and shape (compute_gram's diagonal tiles slice
+    the same rows twice) reuses x's maps; any other z gets its own."""
+    spec = tmk.match(small(T))
+    pool = torch.zeros(8, 3, 8, 8)
+    x = pool[:4]
+    z = {"z is x": x, "same view": pool[:4], "other rows": pool[4:],
+         "prefix of x": pool[:3]}[kind]
+    before = tmk.prepass_launches
+    tmk._launch_kernels(spec, x, z, None, 0)
+    assert tmk.prepass_launches == before + n_prepass
+    names = [name for name, _ in fake_lib.calls]
+    assert names == ["pre-pass"] * n_prepass + ["pair"]
+    pair = fake_lib.calls[-1][1]
+    assert (pair[2] == pair[3]) == (n_prepass == 1)
+    assert pair[4] is None                    # no mask
+
+
+def test_cuda_path_counts_one_launch_per_tile(fake_lib):
+    spec = tmk.match(small(T))
+    x = torch.zeros(6, 3, 8, 8)
+    before = (tmk.launches, tmk.prepass_launches)
+    for j0 in (0, 2, 4):
+        tmk._launch_kernels(spec, x[:2], x[j0:j0 + 2], None, 0)
+    assert tmk.launches == before[0] + 3
+    assert tmk.prepass_launches == before[1] + 5      # the first: z is x
+
+
+def test_cuda_path_raises_on_a_failed_launch(monkeypatch):
+    """A launch that returns a CUDA error raises and is not counted."""
+    lib = _FakeLib(pair_error=2)
+    monkeypatch.setattr(tmk, "_lib", lib)
+    spec = tmk.match(small(T))
+    x = torch.zeros(2, 3, 8, 8)
+    before = tmk.launches
+    with pytest.raises(RuntimeError, match=r"pair kernel .*cuda error 2 "
+                                           r"\(stub error\)"):
+        tmk._launch_kernels(spec, x, x, None, 0)
+    assert tmk.launches == before
+
+
+def test_diag_maps_on_cpu_runs_the_plain_version():
+    spec = tmk.match(small(T))
+    x = torch.from_numpy(_pair(False)[0])
+    before = tmk.prepass_launches
+    got = tmk.diag_maps(spec, x)
+    np.testing.assert_array_equal(
+        _bits(got), _bits(tmk.diag_maps_reference(spec, x)))
+    assert tmk.prepass_launches == before
+
+
+def test_diag_maps_refuses_other_tensors():
+    spec = tmk.match(small(T))
+    with pytest.raises(ValueError, match="cuda"):
+        tmk.diag_maps(spec, torch.zeros(2, 3, 8, 8, device="meta"))
+    with pytest.raises(ValueError, match="cover"):
+        tmk.diag_maps(spec, torch.zeros(2, 3, 10, 10))
+    with pytest.raises(ValueError, match="float32"):
+        tmk.diag_maps(spec, torch.zeros(2, 3, 8, 8, dtype=torch.float64))
+
+
+def test_build_hashes_every_source():
+    """Every csrc/*.cu file is built (and keys the build hash)."""
+    import glob
+    import os
+    csrc = os.path.join(os.path.dirname(tmk.SOURCES[0]), "*.cu")
+    assert sorted(glob.glob(csrc)) == sorted(tmk.SOURCES)
+
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119pair_kernel_genericEPKfS1_S1_S1_PKhS1_Pfiiiiiiifff' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119pair_kernel_genericEPKfS1_S1_S1_PKhS1_Pfiiiiiiifff
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 0 barriers, 420 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_111pair_kernelILi28ELi7EEEvPKfS2_S2_S2_PKhS2_Pfiiiifffb' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_111pair_kernelILi28ELi7EEEvPKfS2_S2_S2_PKhS2_Pfiiiifffb
+    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers, 413 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116diag_maps_kernelEPKfS1_Pfiiiiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116diag_maps_kernelEPKfS1_Pfiiiiif
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 22 registers, used 1 barriers, 396 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_reads_registers_and_spills():
+    assert tmk.ptxas_report(PTXAS_LOG) == [
+        {"kernel": "pair_kernel_generic", "registers": 40,
+         "spill_stores": 0, "spill_loads": 0},
+        {"kernel": "pair_kernel<28,7>", "registers": 96, "spill_stores": 4,
+         "spill_loads": 12},
+        {"kernel": "diag_maps_kernel", "registers": 22, "spill_stores": 0,
+         "spill_loads": 0},
+    ]
