@@ -95,11 +95,19 @@ def relu_transform(kp: KernelPatch) -> KernelPatch:
         return KernelPatch(xy, xx_half, kp.yy * 0.5, kp.same, kp.diag)
 
     mask = kp.resolve_diag_mask()
+    xy_in = kp.xy
+    if mask is not None and settings.grad_safe:
+        # Double-where: same-example entries sit at cos(theta) = 1, where
+        # acos and sqrt have infinite local derivatives; their outputs are
+        # overwritten below (zero cotangent), but 0 * inf = NaN in the
+        # backward pass.  A neutral input (cos = 0) in the discarded branch
+        # keeps gradients finite and changes no primal value.
+        xy_in = torch.where(mask[:, :, None, None], 0.0, xy_in)
     if settings.relu_impl == "fast":
-        xy = _xy_update_factored(kp.xy, kp.xx, kp.yy, acos_fn)
+        xy = _xy_update_factored(xy_in, kp.xx, kp.yy, acos_fn)
     else:
         xx_yy = kp.xx[:, None] * kp.yy[None, :] + F32_TINY
-        xy = _xy_update(kp.xy, xx_yy, acos_fn)
+        xy = _xy_update(xy_in, xx_yy, acos_fn)
     if mask is not None:
         # same-example entries must equal xx' exactly
         xy = torch.where(mask[:, :, None, None],

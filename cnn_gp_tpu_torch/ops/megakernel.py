@@ -14,9 +14,10 @@ source, started together) and bound with ``ctypes``.
 ``gram_tile`` launches both for CUDA tensors (or raises) and runs
 ``gram_tile_reference``, the same network in plain torch, for CPU tensors;
 ``diag_maps`` does the same for the pre-pass alone, against
-``diag_maps_reference``.  ``launches`` counts pair-kernel launches (one
-per tile), ``prepass_launches`` pre-pass launches (one per side of a
-tile, one in all when z is x).
+``diag_maps_reference``; ``diag_readout`` reads the diagonal kernel
+k(x_i, x_i) out of its maps.  ``launches`` counts pair-kernel launches
+(one per tile), ``prepass_launches`` pre-pass launches (one per side of a
+tile, one in all when z is x, one per ``diag_maps`` call).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import math
 import os
 import re
 import shutil
+import struct
 import subprocess
 import time
 import types
@@ -39,8 +41,8 @@ from .arccos import F32_TINY, acos_f32
 from .boxfilter import box_filter_2d
 
 __all__ = ["MegaSpec", "match", "gram_tile", "gram_tile_reference",
-           "diag_maps", "diag_maps_reference", "build", "ptxas_report",
-           "launches", "prepass_launches"]
+           "diag_maps", "diag_maps_reference", "diag_readout", "build",
+           "ptxas_report", "launches", "prepass_launches"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = (os.path.join(_PKG, "csrc", "megakernel.cu"),
@@ -56,6 +58,16 @@ _lib = None
 build_log = ""        # nvcc's output (ptxas register/shared-memory report)
 
 
+def _value(v) -> float:
+    """A hyperparameter's current value: a float, or a learnable leaf."""
+    return float(v.detach() if isinstance(v, torch.Tensor) else v)
+
+
+def _f32(v: float) -> float:
+    """``v`` rounded to float32: the value a learnable leaf holds."""
+    return struct.unpack("f", struct.pack("f", v))[0]
+
+
 class MegaSpec(NamedTuple):
     kernel_size: int
     layer_vw_vb: Tuple[Tuple[float, float], ...]   # L x (var_weight, var_bias)
@@ -63,10 +75,25 @@ class MegaSpec(NamedTuple):
     readout_vw: float
     readout_vb: float
 
+    def layer_scales(self) -> List[Tuple[float, float]]:
+        """Per layer ``(vw / k^2, vb)`` as both kernels and their plain
+        versions apply them, each hyperparameter first rounded to float32:
+        a static model and a learnable one (``nn.Parameter`` leaves) of the
+        same values then give the same bits."""
+        k2 = self.kernel_size * self.kernel_size
+        return [(_f32(vw) / k2, _f32(vb)) for vw, vb in self.layer_vw_vb]
+
+    def readout_scale(self) -> Tuple[float, float]:
+        """``(vw / k^2, vb)`` of the readout, rounded as ``layer_scales``."""
+        return (_f32(self.readout_vw) / (self.readout_k * self.readout_k),
+                _f32(self.readout_vb))
+
 
 def match(model) -> Optional[MegaSpec]:
     """Return a MegaSpec if ``model`` is in the fusable ConvNet-GP family
-    (the accept/refuse rules of ``cnn_gp_tpu.ops.megakernel.match``)."""
+    (the accept/refuse rules of ``cnn_gp_tpu.ops.megakernel.match``).
+    Learnable ``Conv2d`` leaves are read at their current values, so a
+    spec is a snapshot: build it again after the leaves change."""
     from ..kernels import Conv2d, ReLU, Sequential
     if not isinstance(model, Sequential):
         return None
@@ -92,9 +119,9 @@ def match(model) -> Optional[MegaSpec]:
             k = conv.kernel_size
         elif conv.kernel_size != k:
             return None
-        layers.append((float(conv.var_weight), float(conv.var_bias)))
+        layers.append((_value(conv.var_weight), _value(conv.var_bias)))
     return MegaSpec(k, tuple(layers), readout.kernel_size,
-                    float(readout.var_weight), float(readout.var_bias))
+                    _value(readout.var_weight), _value(readout.var_bias))
 
 
 def _recursion(spec: MegaSpec, x: torch.Tensor, z: torch.Tensor,
@@ -115,8 +142,7 @@ def _recursion(spec: MegaSpec, x: torch.Tensor, z: torch.Tensor,
     xy, xx, yy = xy * inv_c, xx * inv_c, yy * inv_c
     k = spec.kernel_size
     pad = (k // 2, k // 2)
-    for vw, vb in spec.layer_vw_vb:
-        scale = vw / (k * k)
+    for scale, vb in spec.layer_scales():
         xy = box_filter_2d(xy, k, 1, pad) * scale + vb
         xx = box_filter_2d(xx, k, 1, pad) * scale + vb
         yy = box_filter_2d(yy, k, 1, pad) * scale + vb
@@ -135,8 +161,8 @@ def _recursion(spec: MegaSpec, x: torch.Tensor, z: torch.Tensor,
 
 
 def _readout(spec: MegaSpec, xy: torch.Tensor) -> torch.Tensor:
-    r_scale = spec.readout_vw / (spec.readout_k * spec.readout_k)
-    return xy.sum(dim=(-2, -1)) * r_scale + spec.readout_vb
+    r_scale, r_vb = spec.readout_scale()
+    return xy.sum(dim=(-2, -1)) * r_scale + r_vb
 
 
 def gram_tile_reference(spec: MegaSpec, x: torch.Tensor, z: torch.Tensor,
@@ -161,8 +187,8 @@ def diag_maps_reference(spec: MegaSpec, x: torch.Tensor) -> torch.Tensor:
     k = spec.kernel_size
     pad = (k // 2, k // 2)
     maps = []
-    for vw, vb in spec.layer_vw_vb:
-        d = box_filter_2d(h, k, 1, pad) * (vw / (k * k)) + vb
+    for scale, vb in spec.layer_scales():
+        d = box_filter_2d(h, k, 1, pad) * scale + vb
         maps.append(d)
         h = d * 0.5
     return torch.stack(maps)
@@ -280,9 +306,8 @@ def ptxas_report(log: str) -> List[dict]:
 @functools.lru_cache(maxsize=16)
 def _layer_params(spec: MegaSpec, device: torch.device) -> torch.Tensor:
     """[L, 2] float32 (vw / k^2, vb) on ``device``, uploaded once."""
-    k2 = spec.kernel_size * spec.kernel_size
-    return torch.tensor([[vw / k2, vb] for vw, vb in spec.layer_vw_vb],
-                        dtype=torch.float32, device=device)
+    return torch.tensor(spec.layer_scales(), dtype=torch.float32,
+                        device=device)
 
 
 def _check_images(spec: MegaSpec, name: str, t: torch.Tensor) -> None:
@@ -343,6 +368,13 @@ def diag_maps(spec: MegaSpec, x: torch.Tensor) -> torch.Tensor:
     build()
     return _launch_diag_maps(spec, x, _layer_params(spec, x.device),
                              torch.cuda.current_stream(x.device).cuda_stream)
+
+
+def diag_readout(spec: MegaSpec, x: torch.Tensor) -> torch.Tensor:
+    """[b] diagonal kernel k(x_i, x_i): the readout of the last halved
+    pre-ReLU map of ``diag_maps`` (a same-example pair's xy equals its
+    halved xx at every layer)."""
+    return _readout(spec, diag_maps(spec, x)[-1] * 0.5)
 
 
 def _require_cuda(x: torch.Tensor) -> None:
@@ -406,12 +438,12 @@ def _launch_pair(spec: MegaSpec, x: torch.Tensor, z: torch.Tensor,
     bx, c, h, _ = x.shape
     bz = z.shape[0]
     out = torch.empty((bx, bz), dtype=torch.float32, device=x.device)
+    r_scale, r_vb = spec.readout_scale()
     _raise_on(_lib.cnn_gp_pair_tile(
         x.data_ptr(), z.data_ptr(), dx.data_ptr(), dz.data_ptr(),
         None if mask is None else mask.data_ptr(), params.data_ptr(),
         out.data_ptr(), bx, bz, c, h, spec.kernel_size,
-        len(spec.layer_vw_vb),
-        spec.readout_vw / (spec.readout_k * spec.readout_k),
-        spec.readout_vb, x.device.index, stream), "pair kernel")
+        len(spec.layer_vw_vb), r_scale, r_vb, x.device.index, stream),
+        "pair kernel")
     launches += 1
     return out

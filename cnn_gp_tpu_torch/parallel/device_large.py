@@ -257,7 +257,7 @@ def variances_from_factor(factor: CardFactor, model, x_all: torch.Tensor,
                           a_scaled: Optional[np.ndarray] = None):
     """GP posterior variances ``k_zz - || L^-1 (s * k_xz) ||^2`` for one
     query split through a live factor of M (empty-split safe).  ``k_zz``
-    comes from ``apply_kernel(diag=True)`` per batch; the scaled cross
+    comes from ``compute_gram_diag`` per batch; the scaled cross
     columns are built per [n, 512] block and never exist in full.  Accuracy
     is the float32 accumulation floor, about eps32 * k_zz absolute.
 

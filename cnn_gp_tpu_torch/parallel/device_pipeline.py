@@ -80,8 +80,8 @@ def classify_device(model, train_x, train_y, *splits,
 
     With ``variances=True`` returns ``(accuracies, variances)``: per-split
     GP posterior variances ``k_zz - k_zx (K + jitter*mean(diag)*I)^-1 k_xz``
-    through the same factor, with ``k_zz`` from ``apply_kernel(diag=True)``
-    per batch (float64 oracle: ``ops.solve.predictive_variance``)."""
+    through the same factor, with ``k_zz`` from ``compute_gram_diag`` per
+    batch (float64 oracle: ``ops.solve.predictive_variance``)."""
     device = torch.device(device)
     settings.check_precision_on(device)
     n_classes = int(np.max(train_y)) + 1

@@ -6,8 +6,9 @@ PyTorch counterpart of ``cnn_gp_tpu/parallel/gram.py``:
   it, and the same-example fix-up is driven by a global-index mask, so one
   tile body serves diagonal and off-diagonal tiles.
 * Models that ``ops.megakernel.match`` accepts (the paper ConvNet-GP
-  family) compute every full tile with the fused megakernel; other models,
-  and every diagonal-only tile, go through ``apply_kernel``.
+  family) compute every full tile with the fused megakernel, and their
+  symmetric diagonal k(x_i, x_i) with its pre-pass; other models, and the
+  diagonal k(x_i, z_i) of two sets, go through ``apply_kernel``.
 * One tile per launch.  Launches are asynchronous; a consumer thread
   copies finished tiles to the host (on the producer's stream) and writes
   them, so device compute overlaps host writes.
@@ -233,7 +234,11 @@ def compute_gram(model, X, Z=None, *, device, batch_size: int = 200,
 def compute_gram_diag(model, X, Z=None, *, device, batch_size: int = 200,
                       store=None, name: Optional[str] = None,
                       progress: bool = True, print_interval: float = 2.0):
-    """Diagonal-only kernel k(x_i, z_i), always through ``apply_kernel``."""
+    """Diagonal-only kernel k(x_i, z_i).  For Z None and a model that
+    ``megakernel.match`` accepts, k(x_i, x_i) is the readout of the last
+    halved pre-ReLU diagonal map, ``megakernel.diag_maps`` (the pre-pass
+    kernel on the card, its plain version on the CPU); otherwise
+    ``apply_kernel`` with ``diag=True``."""
     symmetric = Z is None
     n = len(X)
     b = min(batch_size, n)
@@ -256,9 +261,13 @@ def compute_gram_diag(model, X, Z=None, *, device, batch_size: int = 200,
         offsets = print_timings(iter(list(offsets)), desc=name or "diag",
                                 print_interval=print_interval,
                                 total=len(offsets))
+    spec = megakernel.match(model) if symmetric else None
     for i0 in offsets:
-        dev = apply_kernel(model, x_all[i0:i0 + b], z_all[i0:i0 + b],
-                           symmetric, True)
+        if spec is not None:
+            dev = megakernel.diag_readout(spec, x_all[i0:i0 + b])
+        else:
+            dev = apply_kernel(model, x_all[i0:i0 + b], z_all[i0:i0 + b],
+                               symmetric, True)
         block = dev.cpu().numpy()
         check_block_finite(block[:, None], i0, 0)
         out[i0:i0 + len(block)] = block

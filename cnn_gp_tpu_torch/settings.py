@@ -29,8 +29,10 @@ relu_impl = "fast"
 # ``apply_kernel`` checks and the entry points (CLI scripts,
 # chip_smoke.py) enforce with ``disable_tf32``.
 moment_precision = "highest"
-# Differentiation-safe ReLU transform (the JAX package's fit path); the port
-# differentiates nothing yet, so it stays off.
+# Differentiation-safe ReLU transform: masked (same-example) entries feed a
+# neutral input to the branch whose output is discarded, so leaf gradients
+# through a masked tile stay finite.  Primal values are unchanged; ``fit``
+# turns it on where it differentiates.
 grad_safe = False
 
 

@@ -90,6 +90,39 @@ def test_diag_matches_jax(name, data):
     check(got, want)
 
 
+@pytest.mark.parametrize("learnable", [False, True])
+def test_diag_of_matched_model_reads_the_prepass(data, monkeypatch,
+                                                 learnable):
+    """compute_gram_diag(Z=None) of a megakernel-matched model is the
+    readout of the pre-pass maps (diag_maps, one call per batch) and runs
+    no apply_kernel; it agrees with JAX's model(x, diag=True) within 1e-5
+    of value scale.  With Z given it keeps apply_kernel."""
+    x, z = data
+    jm = G.Sequential(G.Conv2d(3, var_weight=2.0, var_bias=0.5,
+                               learnable=learnable), G.ReLU(),
+                      G.Conv2d(3, var_weight=1.5, var_bias=0.1), G.ReLU(),
+                      G.Conv2d(14, padding=0, learnable=learnable))
+    from cnn_gp_tpu_torch.convert import from_jax_model
+    tm = from_jax_model(jm)
+    calls = []
+    real = megakernel.diag_maps
+    monkeypatch.setattr(megakernel, "diag_maps",
+                        lambda *a: calls.append(1) or real(*a))
+
+    def refuse(*a, **k):
+        raise AssertionError("apply_kernel ran for a matched model")
+
+    monkeypatch.setattr(tgram_mod, "apply_kernel", refuse)
+    got = compute_gram_diag(tm, x, device="cpu", batch_size=B,
+                            progress=False)
+    assert len(calls) == 4                     # 37 rows in batches of 10
+    check(got, np.asarray(jm(x, diag=True)))
+    monkeypatch.undo()
+    got = compute_gram_diag(tm, x[:len(z)], z, device="cpu", batch_size=B,
+                            progress=False)
+    check(got, np.asarray(jm(x[:len(z)], z, diag=True)))
+
+
 def test_tile_dispatch(data, monkeypatch):
     """Megakernel-shaped models send every full tile to gram_tile; the
     diagonal-only path and other models send none."""
