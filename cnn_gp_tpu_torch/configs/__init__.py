@@ -8,9 +8,15 @@ JAX config).  Each config is a plain module with attributes
 (index ranges into the concatenated train+test pool), ``in_channels``,
 ``out_channels``, ``transforms`` and ``initial_model``.
 
-Ported: ``synthetic``, ``mnist_paper_convnet_gp``, ``mnist_as_tf`` and
-``mnist`` (the default ``--config`` of the drivers: ResNet-32 on the
-50k/10k/10k split).
+Ported: every config of the repo's ``configs/``: ``synthetic``,
+``mnist_paper_convnet_gp`` (the megakernel's ConvNet GP),
+``mnist_paper_residual_cnn_gp`` (eight ``Sum`` residual blocks with an
+even 4x4 kernel), ``mnist_as_tf`` with its 16k and 4k rehearsal splits
+``mnist_as_tf_16k`` and ``mnist_as_tf_mini``, ``mnist`` (the default
+``--config`` of the drivers: ResNet-32 on the 50k/10k/10k split) and
+``cifar10`` (ResNet-32 on 3-channel 32x32 images, tile 350).  Only
+``synthetic`` and ``mnist_paper_convnet_gp`` have models that
+``ops.megakernel.match`` accepts; the ResNets run on the plain path.
 """
 
 import importlib

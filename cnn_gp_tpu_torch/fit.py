@@ -36,7 +36,7 @@ from __future__ import annotations
 
 import copy
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -132,13 +132,20 @@ def neg_marginal_log_likelihood(model, x, y, jitter: float = 1e-6, *,
 
 
 def fit(model, x, y, steps: int = 50, learning_rate: float = 0.1,
-        jitter: float = 1e-6, *, device) -> Tuple[object, np.ndarray]:
-    """Optimise the model's leaves by Adam on
-    :func:`neg_marginal_log_likelihood`.  Returns ``(fitted_copy,
-    losses)``.  Positive leaves are optimised in log space: multiplicative
-    steps that cannot cross zero."""
+        jitter: float = 1e-6, loss_fn: Optional[Callable] = None, *,
+        device) -> Tuple[object, np.ndarray]:
+    """Optimise the model's leaves by Adam on ``loss_fn(model)`` (a scalar
+    tensor), by default :func:`neg_marginal_log_likelihood` of ``x`` and
+    ``y``.  Returns ``(fitted_copy, losses)``.  Positive leaves are
+    optimised in log space: multiplicative steps that cannot cross
+    zero."""
     device = torch.device(device)
-    x, y = _on_device(x, device), _on_device(y, device)
+    if loss_fn is None:
+        x, y = _on_device(x, device), _on_device(y, device)
+
+        def loss_fn(m):
+            return neg_marginal_log_likelihood(m, x, y, jitter,
+                                               device=device)
     fitted = copy.deepcopy(model)
     items = _leaves(fitted)
     raw = _to_raw(items)
@@ -146,8 +153,7 @@ def fit(model, x, y, steps: int = 50, learning_rate: float = 0.1,
     losses = []
     for _ in range(steps):
         _set_primal(items, raw)
-        loss = neg_marginal_log_likelihood(fitted, x, y, jitter,
-                                           device=device)
+        loss = loss_fn(fitted)
         grads = torch.autograd.grad(loss, [p for _, p in items],
                                     allow_unused=True)
         _set_raw_grads(items, raw, {

@@ -25,7 +25,7 @@ float64 host oracles, the same numpy/scipy code.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,7 +36,7 @@ __all__ = ["one_hot_targets", "diag_add", "symmetrize_from_upper",
            "solve_gp", "predict", "accuracy", "refine_with_factor",
            "predictive_variance",
            "log_marginal_likelihood", "gaussian_lpd",
-           "log_predictive_density", "solve_gp_stats"]
+           "log_predictive_density", "solve_gp_stats", "classify"]
 
 
 def one_hot_targets(labels: np.ndarray, n_classes: Optional[int] = None,
@@ -296,3 +296,18 @@ def solve_gp_stats(kxx: np.ndarray, y: np.ndarray, jitter: float = 0.0,
         variances.append(np.maximum(
             np.asarray(kzz, np.float64) - (v * v).sum(0), 0.0))
     return {"alpha": alpha, "variances": variances, "log_evidence": ev}
+
+
+def classify(kxx: np.ndarray, train_labels: np.ndarray, jitter: float = 0.0,
+             method: str = "auto", device=None,
+             **splits: Tuple[np.ndarray, np.ndarray]) -> dict:
+    """Full GP classification: solve on Kxx, report accuracy per split.
+
+    ``splits`` maps name -> (Kzx, labels).  Kxx may be upper-triangle-only.
+    ``device`` is passed to :func:`solve_gp` (needed by the card methods).
+    """
+    kxx = symmetrize_from_upper(np.asarray(kxx, np.float64))
+    a = solve_gp(kxx, one_hot_targets(train_labels), jitter=jitter,
+                 method=method, device=device)
+    return {name: accuracy(predict(kzx, a), labels)
+            for name, (kzx, labels) in splits.items()}

@@ -20,9 +20,10 @@ triangle comes out zero.  Rows ``[n, n_pad)`` are identity padding, so
 the padded factor embeds the factor of the true system, and the geometry
 (``n_pad``, ``block``) is the JAX package's on a one-device mesh.
 
-The mesh, the row sharding and ``extend`` / ``extend_device`` (online
-data addition) are not ported: ``extend`` comes with
-``parallel/incremental.py`` (ROADMAP.md, Queue 1).
+``capacity=`` reserves identity-padded rows past ``n``, and ``extend`` /
+``extend_device`` grow the factored system into them in place (online data
+addition, ``parallel/incremental.py``).  The mesh and the row sharding are
+not ported (ROADMAP.md, Queue 1, item 11).
 """
 
 from __future__ import annotations
@@ -105,11 +106,17 @@ class CardFactor:
     """The lower Cholesky factor of an SPD system, held in one
     [n_pad, n_pad] card tensor ``l`` and factored there in place."""
 
-    def __init__(self, n: int, block: int = 1024, pad_to: int = 1, *,
-                 device, dtype=torch.float32):
+    def __init__(self, n: int, block: int = 1024, pad_to: int = 1,
+                 capacity: Optional[int] = None, *, device,
+                 dtype=torch.float32):
+        """``capacity`` reserves identity-padded rows past ``n``, so the
+        factored system can later grow in place (:meth:`extend`).  The
+        factor's cost scales with the padded size, identity rows included,
+        so reserve only what will be used."""
         self.n = int(n)
         self.block = int(block)
-        self.n_pad = _pad_size(self.n, self.block, 1, pad_to)
+        self.n_pad = _pad_size(max(self.n, int(capacity or self.n)),
+                               self.block, 1, pad_to)
         self.device = torch.device(device)
         self.dtype = dtype
         self.l: Optional[torch.Tensor] = None
@@ -244,7 +251,7 @@ class CardFactor:
         self.l = k
 
     def _forward(self, b: torch.Tensor) -> torch.Tensor:
-        """``L^-1 b`` in place for ``b`` [r, m], r in (n, n_pad]: the factor
+        """``L^-1 b`` in place for ``b`` [r, m], r in [n, n_pad]: the factor
         is block-diagonal with an identity pad block, so the leading r
         rows suffice."""
         l, bs, r = self.l, self.block, b.shape[0]
@@ -301,10 +308,92 @@ class CardFactor:
 
     def diag_blocks(self) -> torch.Tensor:
         """The [n_pad / block, block, block] diagonal blocks of the factor
-        (the JAX package's ``diags`` stack)."""
+        (the JAX package's ``diags`` stack), read from the live buffer: an
+        extension leaves nothing else to refresh."""
         nb, bs = self.n_pad // self.block, self.block
         return torch.stack([self.l[i * bs:(i + 1) * bs, i * bs:(i + 1) * bs]
                             for i in range(nb)])
+
+    def _check_factored(self) -> None:
+        if self.l is None:
+            raise RuntimeError("factorize before extend")
+
+    def _check_capacity(self, m: int) -> None:
+        if self.n + m > self.n_pad:
+            raise ValueError(
+                f"extend past capacity: n={self.n} + m={m} > "
+                f"n_pad={self.n_pad}; construct with capacity>={self.n + m}")
+
+    def extend(self, b_scaled: np.ndarray, c_scaled: np.ndarray) -> None:
+        """Grow the factored system by ``m`` rows in place (online data
+        addition): O(N^2 m) work instead of an O((N + m)^3 / 3) refactor,
+        and no second N^2 buffer.
+
+        The new rows fill identity-padded rows the factor already holds
+        (``capacity=``).  For ``M2 = [[M, B^T], [B, C]]``: ``L21 = B L^-T``
+        by one blocked forward solve with ``B^T`` as its right-hand side,
+        ``L22 = chol(C - L21 L21^T)`` (one [m, m] Cholesky; chain calls
+        for a large m), and rows [n, n + m) of the buffer are overwritten.
+
+        ``b_scaled`` [m, n] and ``c_scaled`` [m, m] (host arrays) must be in
+        the factored matrix's scaled space: for an equilibrated factor
+        ``s_new[:, None] * K_new_old * s_old[None, :]`` and
+        ``s_new[:, None] * K_new_new * s_new[None, :]``, the old scalings
+        frozen.  A non positive-definite extension raises ``ValueError``
+        and leaves the factor as it was, bit for bit."""
+        self._check_factored()
+        b_scaled = np.asarray(b_scaled, np.float32)
+        c_scaled = np.asarray(c_scaled, np.float32)
+        m, nb_cols = b_scaled.shape
+        if nb_cols != self.n or c_scaled.shape != (m, m):
+            raise ValueError((b_scaled.shape, c_scaled.shape, self.n))
+        self._check_capacity(m)
+        # uploaded as it lies and transposed on the device: a host
+        # transpose of an [m, n] block costs more than the extension
+        rhs = torch.from_numpy(np.ascontiguousarray(b_scaled)).to(
+            self.device, self.dtype).T.contiguous()
+        self._extend_core(rhs, torch.from_numpy(c_scaled).to(
+            self.device, self.dtype))
+
+    def extend_device(self, w: torch.Tensor, c_scaled: torch.Tensor) -> None:
+        """:meth:`extend` for cross blocks already on the card: ``w`` is the
+        [n_pad, m] scaled block ``B^T`` with zero rows over [n, n_pad)
+        (``W[i, j] = s_old[i] K(x_i, z_j) s_new[j]``), ``c_scaled`` the
+        [m, m] scaled new-new block with a unit diagonal.  Neither is
+        modified."""
+        self._check_factored()
+        m = w.shape[1]
+        if w.shape != (self.n_pad, m) or c_scaled.shape != (m, m):
+            raise ValueError((tuple(w.shape), tuple(c_scaled.shape),
+                              self.n_pad))
+        self._check_capacity(m)
+        self._extend_core(w[:self.n].to(self.dtype, copy=True).contiguous(),
+                          c_scaled.to(self.dtype))
+
+    @torch.no_grad()
+    def _extend_core(self, rhs: torch.Tensor, c: torch.Tensor) -> None:
+        """``rhs`` [n, m] (consumed) holds ``B^T``; ``c`` [m, m] holds C."""
+        settings.check_precision_on(self.device)
+        n0, m = self.n, rhs.shape[1]
+        # y = L^-1 B^T over the leading n rows: the pad block is identity
+        # and B^T is zero there, so the rows below n would stay zero
+        y = self._forward(rhs)
+        l22, info = torch.linalg.cholesky_ex(c - y.T @ y)
+        # the positive-definiteness gate comes BEFORE any write: a non-PD
+        # Schur complement (duplicate points at zero jitter) would
+        # otherwise leave NaNs or garbage in the live factor
+        d = l22.diagonal()
+        if (int(info) != 0 or not bool(torch.isfinite(d).all())
+                or bool((d <= 0).any())):
+            raise ValueError(
+                "extend: the Schur complement of the new rows is not "
+                "positive-definite in float32 (duplicate or near-duplicate "
+                "training points, or zero jitter?); the live factor is "
+                "unchanged")
+        # rows n0 + m and up stay identity, the upper triangle zero
+        self.l[n0:n0 + m, :n0] = y.T
+        self.l[n0:n0 + m, n0:n0 + m] = torch.tril(l22)
+        self.n = n0 + m
 
 
 def chol_solve_dist(kxx: np.ndarray, y: np.ndarray, jitter: float = 0.0,

@@ -13,8 +13,17 @@ import numpy as np
 
 from ..utils import round_up_div
 
-__all__ = ["tile_manifest", "worker_span", "worker_manifest",
+__all__ = ["n_tiles", "tile_manifest", "worker_span", "worker_manifest",
            "tile_offsets"]
+
+
+def n_tiles(n1_batches: int, n2_batches: int, symmetric: bool) -> int:
+    """Tiles of the manifest over ``n1_batches`` x ``n2_batches`` batches
+    (the upper triangle when symmetric, at least one tile, as the
+    reference counts)."""
+    if symmetric:
+        return max(1, n1_batches * (n1_batches + 1) // 2)
+    return n1_batches * n2_batches
 
 
 def tile_manifest(n1_batches: int, n2_batches: int, symmetric: bool

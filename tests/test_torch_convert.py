@@ -41,7 +41,9 @@ def describe(m):
     return (kind,)
 
 
-CONFIGS = ["synthetic", "mnist_paper_convnet_gp", "mnist_as_tf", "mnist"]
+CONFIGS = ["synthetic", "mnist_paper_convnet_gp", "mnist_as_tf", "mnist",
+           "cifar10", "mnist_paper_residual_cnn_gp", "mnist_as_tf_16k",
+           "mnist_as_tf_mini"]
 
 
 @pytest.mark.parametrize("name", CONFIGS)
