@@ -9,6 +9,9 @@
   pytree paths, e.g. ``[<flat index 0>][0].var_weight`` for the first
   layer of a ``Sequential``.  A missing, extra or mis-shaped leaf is
   refused.
+* ``finite_params_from_jax(net, params)`` loads the parameters that the
+  JAX package's ``FiniteNet.init`` draws into the port's ``FiniteNet``,
+  so both compute the same networks.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ from torch import nn
 
 from .kernels import Conv2d, Mixture, NNGPKernel, ReLU, Sequential, Sum
 
-__all__ = ["from_jax_model", "leaf_items", "load_leaves", "save_leaves"]
+__all__ = ["from_jax_model", "leaf_items", "load_leaves", "save_leaves",
+           "finite_params_from_jax"]
 
 
 def from_jax_model(m) -> NNGPKernel:
@@ -106,3 +110,13 @@ def load_leaves(model, source):
             f"saved leaves this model does not have: {sorted(saved)} "
             f"(architecture/learnable flags differ)")
     return new
+
+
+def finite_params_from_jax(net, params, device="cpu"):
+    """Load JAX ``FiniteNet.init`` parameters into the port's ``net``.
+
+    ``params`` is one JAX parameter pytree (nested tuples of ``{"w", "b"}``
+    arrays), loaded as S = 1, or a list of them, stacked into S networks
+    in that order.  Returns ``net``."""
+    draws = params if isinstance(params, list) else [params]
+    return net._load_jax(draws, device)

@@ -113,6 +113,13 @@ class NNGPKernel(nn.Module):
         """Number of conv layers."""
         raise NotImplementedError
 
+    def nn(self, channels, in_channels=None, out_channels=None):
+        """Finite-width random networks with this kernel as their
+        infinite-width limit (``finite.FiniteNet``; draw them with
+        ``init``)."""
+        from . import finite
+        return finite.FiniteNet(self, channels, in_channels, out_channels)
+
 
 class Conv2d(NNGPKernel):
     """Covariance map of an infinite-channel conv layer: a box filter

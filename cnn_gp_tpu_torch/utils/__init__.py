@@ -2,7 +2,8 @@ import argparse
 
 import torch
 
-from .timing import print_timings, hhmmss  # noqa: F401
+from .timing import (FP32_PEAK, hhmmss, print_timings,  # noqa: F401
+                     synced_clock)
 
 
 def round_up_div(a: int, b: int) -> int:

@@ -5,13 +5,29 @@ imports it).
 ``print_timings`` wraps an iterator and prints `i/total it, it/s,
 [elapsed<projected]` at most every ``print_interval`` seconds, one full
 line per report so concurrent workers can interleave on one terminal.
+``synced_clock`` is the host clock read after the device's work, and
+``FP32_PEAK`` the rate the scripts state their FP32 shares against.
 """
 
 from __future__ import annotations
 
 import time
 
-__all__ = ["print_timings", "hhmmss"]
+import torch
+
+__all__ = ["print_timings", "hhmmss", "synced_clock", "FP32_PEAK"]
+
+# One H100 SXM, dense FP32 outside the tensor cores, operations per second
+# (the published peak, at its 700 W power limit).
+FP32_PEAK = 67e12
+
+
+def synced_clock(device) -> float:
+    """``time.perf_counter()`` after a synchronisation of ``device`` when
+    it is a CUDA device (CPU work is done when its call returns)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()
 
 
 def hhmmss(s: float) -> str:
