@@ -29,7 +29,7 @@ from typing import Optional
 import numpy as np
 
 from cnn_gp_tpu_torch import configs
-from cnn_gp_tpu_torch.data import DatasetFromConfig, GramStore
+from cnn_gp_tpu_torch.data import DatasetFromConfig, open_store
 from cnn_gp_tpu_torch.ops import solve
 from cnn_gp_tpu_torch.utils import add_bool_flag, resolve_device
 
@@ -64,7 +64,7 @@ def flag_error(solver: str, jitter: float, variances: bool, evidence: bool,
 def run(config, in_path: str, *, datasets_path: str, device=None,
         jitter: float = 0.0, solver: str = "scipy", variances: bool = False,
         evidence: bool = False, lpd: bool = False,
-        stream: bool = True) -> dict:
+        stream: bool = True, store_backend: str = "auto") -> dict:
     """Solve on the stored Kxx and score both splits.  Returns
     ``{"validation": (accuracy, predictions), "test": (...)}``, plus
     ``"log_evidence"`` (with ``evidence`` or ``variances``),
@@ -88,7 +88,7 @@ def run(config, in_path: str, *, datasets_path: str, device=None,
               ("test", "Kxtx", "Kt_diag", dataset.test))
     results = {}
     var = None
-    with GramStore(in_path, "r") as f:
+    with open_store(in_path, "r", backend=store_backend) as f:
         if solver == "chol_dist":
             from cnn_gp_tpu_torch.parallel.chol_dist import (
                 chol_solve_dist_from_store, chol_solve_stream_from_store,
@@ -177,8 +177,9 @@ def main(argv=None):
                    help="path of h5 file to load kernels from")
     p.add_argument("--jitter", type=float, default=0.0,
                    help="add to the diagonal")
-    p.add_argument("--store_backend", default="auto", choices=["auto", "h5"],
-                   help="HDF5 only; the TensorStore backend is not ported")
+    p.add_argument("--store_backend", default="auto",
+                   choices=["auto", "h5", "zarr"],
+                   help="auto (by extension) | h5 | zarr (TensorStore)")
     p.add_argument("--solver", default="scipy",
                    choices=["scipy", "chol", "chol_ir", "chol_dist"],
                    help="scipy (float64 LAPACK on the host) | chol "
@@ -213,7 +214,7 @@ def main(argv=None):
     run(configs.load(a.config), a.in_path, datasets_path=a.datasets_path,
         device=resolve_device(a.device), jitter=a.jitter, solver=a.solver,
         variances=a.variances, evidence=a.evidence, lpd=a.lpd,
-        stream=a.stream)
+        stream=a.stream, store_backend=a.store_backend)
 
 
 if __name__ == "__main__":

@@ -13,9 +13,10 @@ float32 Cholesky on the card, float64 refinement), ``chol_dist`` (the
 blocked float32 card factor of the equilibrated Gram, fed from the Gram
 already on the card, float64 refinement) and ``device_large``
 (``classify_device_large``: tiles regenerated into the factor, nothing
-N^2 on the host, its jitter the same absolute jitter).  The mesh CG row
-of the JAX script (``cg_solve_sharded`` on ``make_mesh``) belongs to the
-multi-GPU work (ROADMAP item 11): ``--solvers=cg`` raises.
+N^2 on the host, its jitter the same absolute jitter) and ``cg``
+(``cg_solve_sharded`` on ``make_mesh``: Jacobi-preconditioned block CG,
+the Gram row-sharded over the rank group, float32 as in the JAX script,
+``--cg_tol`` / ``--cg_maxiter``).
 
     python -m cnn_gp_tpu_torch.scripts.solver_validation \\
         --config=mnist_as_tf --n=4096
@@ -33,12 +34,14 @@ import torch
 from cnn_gp_tpu_torch import configs, settings
 from cnn_gp_tpu_torch.data import synthetic_arrays
 from cnn_gp_tpu_torch.ops import solve
-from cnn_gp_tpu_torch.parallel import classify_device_large, gram_device
+from cnn_gp_tpu_torch.parallel import (cg_solve_sharded,
+                                       classify_device_large, gram_device,
+                                       make_mesh)
 from cnn_gp_tpu_torch.parallel.chol_dist import chol_solve_dist
 from cnn_gp_tpu_torch.utils import (add_bool_flag, resolve_device,
                                     synced_clock)
 
-SOLVERS = ("scipy", "chol_ir", "chol_dist", "device_large")
+SOLVERS = ("scipy", "chol_ir", "chol_dist", "cg", "device_large")
 
 
 def assemble(model, n, n_test, batch, in_channels, device, side=28):
@@ -69,10 +72,6 @@ def cond_estimate(kxx, jitter):
 
 def run(a, device) -> dict:
     solvers = a.solvers.split(",")
-    if "cg" in solvers:
-        raise NotImplementedError(
-            "--solvers=cg: the mesh CG solver (cg_solve_sharded on "
-            "make_mesh) is not ported, ROADMAP item 11 (multi-GPU)")
     unknown = sorted(set(solvers) - set(SOLVERS))
     if unknown:
         raise ValueError(f"unknown solvers {unknown}; choose from "
@@ -128,6 +127,15 @@ def run(a, device) -> dict:
                          f"(card-resident gram)")
         record("chol_dist", _dist)
     del k_dev                 # chol_dist consumed it
+    if "cg" in solvers:
+        def _cg():
+            # cg_solve_sharded applies jitter itself (matvec + Jacobi
+            # preconditioner)
+            sol, _, iters = cg_solve_sharded(
+                kxx, y, jitter=jitter, mesh=make_mesh(device=device),
+                tol=a.cg_tol, maxiter=a.cg_maxiter)
+            return sol, f"jacobi-CG, {iters} iters"
+        record("cg", _cg)
     if "device_large" in solvers:
         def _large():
             _, info = classify_device_large(
@@ -174,8 +182,12 @@ def main(argv=None):
                    help="diagonal jitter (absolute)")
     p.add_argument("--block", type=int, default=1024,
                    help="chol_dist / device_large block size")
+    p.add_argument("--cg_tol", type=float, default=1e-8,
+                   help="CG tolerance")
+    p.add_argument("--cg_maxiter", type=int, default=4000,
+                   help="CG iteration cap")
     p.add_argument("--solvers", default=",".join(SOLVERS),
-                   help="comma list of solvers to run (cg: not ported)")
+                   help="comma list of solvers to run")
     add_bool_flag(p, "eig", True,
                   "compute the equilibrated condition number")
     p.add_argument("--device", default="cuda",

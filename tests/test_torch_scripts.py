@@ -2,9 +2,10 @@
 against the JAX package's computation on the same inputs: serving_bench
 (the served posterior predicts as JAX's), model_selection (evidence within
 1e-4 and equal accuracies), solver_validation (the Gram and every row's
-predictions against JAX's scipy solve; CG refused), cifar_sweep (its tile
-against JAX's tile, its operation count), and the run.bash counterpart of
-exp_mnist_resnet on fake MNIST with mnist_as_tf_mini cut to toy ranges."""
+predictions against JAX's scipy solve; the CG row's iterations against
+JAX's), cifar_sweep (its tile against JAX's tile, its operation count),
+and the run.bash counterpart of exp_mnist_resnet on fake MNIST with
+mnist_as_tf_mini cut to toy ranges."""
 
 import json
 import os
@@ -135,15 +136,15 @@ def test_model_selection_matches_jax_evidence(capsys):
 
 
 def test_solver_validation_matches_jax():
-    """The card Gram equals JAX's within 1e-5; every row (scipy, chol_ir,
-    chol_dist, device_large) predicts as JAX's float64 scipy solve, with
-    its solution within 1e-4 of it."""
+    """The card Gram equals JAX's within 1e-5; every row of the default
+    list (scipy, chol_ir, chol_dist, cg, device_large) predicts as JAX's
+    float64 scipy solve, with its solution within 1e-4 of it."""
     from scripts.solver_validation import _assemble as jassemble
     out = solver_validation.main([
         "--config=synthetic", "--n=64", "--n_test=16", "--batch=16",
         "--block=16", "--device=cpu"])
-    assert sorted(out["rows"]) == ["chol_dist", "chol_ir", "device_large",
-                                   "scipy"]
+    assert sorted(out["rows"]) == ["cg", "chol_dist", "chol_ir",
+                                   "device_large", "scipy"]
     jm = jconfigs.load("synthetic").initial_model
     kxx, kzx, tr_y, te_y, _ = jassemble(jm, 64, 16, 16, 1)
     kxx_t, kzx_t, _, _ = solver_validation.assemble(
@@ -162,8 +163,26 @@ def test_solver_validation_matches_jax():
 
 
 def test_solver_validation_cg_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        solver_validation.main(["--solvers=scipy,cg", "--device=cpu"])
+    """The JAX script's default rows, CG included (--cg_tol 1e-8,
+    --cg_maxiter 4000): every row predicts as scipy, and the CG row takes
+    JAX's cg_solve_sharded's iteration count within 2 on JAX's Gram."""
+    from cnn_gp_tpu.parallel import cg_solve_sharded as jcg
+    from cnn_gp_tpu.parallel import make_mesh as jmake_mesh
+    from scripts.solver_validation import _assemble as jassemble
+    out = solver_validation.main([
+        "--config=synthetic", "--n=64", "--n_test=16", "--batch=16",
+        "--block=16", "--solvers=scipy,chol_ir,chol_dist,cg",
+        "--device=cpu"])
+    assert list(out["rows"]) == ["scipy", "chol_ir", "chol_dist", "cg"]
+    for name, row in out["rows"].items():
+        if name != "scipy":
+            assert row["pred_agreement"] == 1.0, (name, row)
+    jm = jconfigs.load("synthetic").initial_model
+    kxx, _, tr_y, _, _ = jassemble(jm, 64, 16, 16, 1)
+    _, _, j_iters = jcg(kxx, jsolve.one_hot_targets(tr_y), mesh=jmake_mesh(),
+                        tol=1e-8, maxiter=4000)
+    iters = int(re.search(r"(\d+) iters", out["rows"]["cg"]["notes"])[1])
+    assert abs(iters - j_iters) <= 2, (iters, j_iters)
 
 
 def test_cifar_sweep_rows_and_tile(capsys):

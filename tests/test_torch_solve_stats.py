@@ -174,7 +174,7 @@ def test_classify_gp_stats_match_jax(store, capsys):
 def test_stats_flags_refuse_chol_before_reading(flag, monkeypatch):
     """--solver=chol with a stats flag is refused before the store is
     opened (JAX refuses every solver but scipy and chol_dist)."""
-    monkeypatch.setattr(classify_gp, "GramStore", None)
+    monkeypatch.setattr(classify_gp, "open_store", None)
     with pytest.raises(ValueError, match="--solver=scipy"):
         classify_gp.run(tiny_config(), "absent.h5", datasets_path="",
                         solver="chol", jitter=1.0, **{flag: True})
@@ -191,7 +191,7 @@ def test_lpd_with_zero_jitter_refused_before_solve(store, monkeypatch):
         raise AssertionError("solved before refusing")
 
     monkeypatch.setattr(tsolve, "solve_gp_stats", no_solve)
-    monkeypatch.setattr(classify_gp, "GramStore", None)
+    monkeypatch.setattr(classify_gp, "open_store", None)
     with pytest.raises(ValueError, match="--jitter > 0"):
         classify_gp.run(cfg, path, datasets_path=root, lpd=True)
     with pytest.raises(SystemExit):
