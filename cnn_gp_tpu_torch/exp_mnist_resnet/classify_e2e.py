@@ -22,8 +22,9 @@ import numpy as np
 
 from cnn_gp_tpu_torch import configs, settings
 from cnn_gp_tpu_torch.data import DatasetFromConfig
-from cnn_gp_tpu_torch.parallel import classify_device, classify_device_large
-from cnn_gp_tpu_torch.utils import add_bool_flag, resolve_device
+from cnn_gp_tpu_torch.parallel import (classify_device,
+                                       classify_device_large, multihost)
+from cnn_gp_tpu_torch.utils import add_bool_flag
 
 
 def run(config, *, datasets_path: str, device, batch_size: int = 128,
@@ -31,10 +32,15 @@ def run(config, *, datasets_path: str, device, batch_size: int = 128,
         large: bool = False, block: int = 2048, refine_iters: int = 1,
         residual_check: str = "sampled", residual_sample_seed: int = -1,
         residual_accept_frac: float = 1.0, save_posterior: str = "",
-        config_name: str = "") -> dict:
+        config_name: str = "", mesh=None) -> dict:
     """Classify the config's validation and test splits.  Returns
     ``{"accuracies": [val, test], "variances": [val, test] or None}``, plus
-    ``"info"`` (``classify_device_large``'s) with ``large``."""
+    ``"info"`` (``classify_device_large``'s) with ``large``.  ``mesh``
+    (with ``large`` only) row-shards the factor over a rank group; rank 0
+    saves the posterior."""
+    if mesh is not None and not large:
+        raise ValueError("a rank group row-shards --large's factor; "
+                         "classify_device holds the Gram on one card")
     settings.disable_tf32()
     dataset = DatasetFromConfig(datasets_path, config)
     t0 = time.perf_counter()
@@ -49,14 +55,14 @@ def run(config, *, datasets_path: str, device, batch_size: int = 128,
             residual_accept_frac=residual_accept_frac,
             residual_sample_seed=(residual_sample_seed
                                   if residual_sample_seed >= 0 else None),
-            variances=variances, device=device)
+            variances=variances, device=device, mesh=mesh)
         var = info["variances"]
         est = "~" if info["rel_residual_estimated"] else ""
         print(f"rel residual {est}{info['rel_residual']:.2e} after "
               f"{info['refinements']} refinements; "
               f"log evidence {info['log_evidence']:.6g}; "
               f"timings {info['timings_s']}")
-        if save_posterior:
+        if save_posterior and (mesh is None or mesh.rank == 0):
             from cnn_gp_tpu_torch.serving import save_posterior as save
             out = save(save_posterior, train_x=dataset.train.images,
                        alpha=info["alpha"], scalings=info["scalings"],
@@ -131,19 +137,28 @@ def main(argv=None):
                         "via serve_gp")
     p.add_argument("--device", default="cuda",
                    help="torch device to compute on")
+    multihost.add_group_flags(p)
     a = p.parse_args(argv)
     if a.save_posterior and not a.large:
         p.error("--save_posterior needs --large (classify_device keeps no "
                 "equilibrated posterior); save one with "
                 "cnn_gp_tpu_torch.serving.save_posterior")
-    run(configs.load(a.config), datasets_path=a.datasets_path,
-        device=resolve_device(a.device), batch_size=a.batch_size,
-        jitter=a.jitter, refine=a.refine, variances=a.variances,
-        large=a.large, block=a.block, refine_iters=a.refine_iters,
-        residual_check=a.residual_check,
-        residual_sample_seed=a.residual_sample_seed,
-        residual_accept_frac=a.residual_accept_frac,
-        save_posterior=a.save_posterior, config_name=a.config)
+    if a.coordinator_address and not a.large:
+        p.error("--coordinator_address needs --large (the row-sharded "
+                "factor)")
+    device, mesh = multihost.join_from_flags(a)
+    try:
+        run(configs.load(a.config), datasets_path=a.datasets_path,
+            device=device, batch_size=a.batch_size,
+            jitter=a.jitter, refine=a.refine, variances=a.variances,
+            large=a.large, block=a.block, refine_iters=a.refine_iters,
+            residual_check=a.residual_check,
+            residual_sample_seed=a.residual_sample_seed,
+            residual_accept_frac=a.residual_accept_frac,
+            save_posterior=a.save_posterior, config_name=a.config,
+            mesh=mesh)
+    finally:
+        multihost.shutdown()
 
 
 if __name__ == "__main__":

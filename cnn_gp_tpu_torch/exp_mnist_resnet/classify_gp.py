@@ -20,6 +20,15 @@ or ``--solver=chol_dist`` (through the float32 card factor).
 
     python -m cnn_gp_tpu_torch.exp_mnist_resnet.classify_gp \\
         --config=mnist_paper_convnet_gp --in_path=k.h5 --solver=chol
+
+With ``--coordinator_address`` (``--num_processes`` / ``--process_id``, or
+``env`` under torchrun), ``--solver=chol_dist`` row-shards the factor over
+the group's ranks (``ShardedFactor``): rank 0 alone reads Kxx and sends
+each rank its rows; every rank reads the cross Grams and reports:
+
+    torchrun --nproc_per_node=4 \\
+        -m cnn_gp_tpu_torch.exp_mnist_resnet.classify_gp \\
+        --coordinator_address=env --solver=chol_dist --in_path=k.h5 ...
 """
 
 import argparse
@@ -31,7 +40,8 @@ import numpy as np
 from cnn_gp_tpu_torch import configs
 from cnn_gp_tpu_torch.data import DatasetFromConfig, open_store
 from cnn_gp_tpu_torch.ops import solve
-from cnn_gp_tpu_torch.utils import add_bool_flag, resolve_device
+from cnn_gp_tpu_torch.parallel import multihost
+from cnn_gp_tpu_torch.utils import add_bool_flag
 
 
 def _checked(name, arr):
@@ -64,15 +74,21 @@ def flag_error(solver: str, jitter: float, variances: bool, evidence: bool,
 def run(config, in_path: str, *, datasets_path: str, device=None,
         jitter: float = 0.0, solver: str = "scipy", variances: bool = False,
         evidence: bool = False, lpd: bool = False,
-        stream: bool = True, store_backend: str = "auto") -> dict:
+        stream: bool = True, store_backend: str = "auto",
+        mesh=None) -> dict:
     """Solve on the stored Kxx and score both splits.  Returns
     ``{"validation": (accuracy, predictions), "test": (...)}``, plus
     ``"log_evidence"`` (with ``evidence`` or ``variances``),
     ``"variances"`` (split -> [n] array, with ``variances`` or ``lpd``) and
-    ``"lpd"`` (split -> (mean, se), with ``lpd``)."""
+    ``"lpd"`` (split -> (mean, se), with ``lpd``).  ``mesh`` (with
+    ``solver="chol_dist"`` only) row-shards the factor over a rank
+    group."""
     err = flag_error(solver, jitter, variances, evidence, lpd)
     if err:
         raise ValueError(err)
+    if mesh is not None and solver != "chol_dist":
+        raise ValueError("a rank group row-shards --solver=chol_dist's "
+                         "factor; the other solvers run on one device")
     want_var = variances or lpd
     want_stats = want_var or evidence
     t = [time.perf_counter()]
@@ -96,11 +112,13 @@ def run(config, in_path: str, *, datasets_path: str, device=None,
             if stream:
                 out = chol_solve_stream_from_store(
                     f, "Kxx", y_1hot, jitter=jitter, check_finite=True,
-                    verbose=True, return_factor=want_stats, device=device)
+                    verbose=True, return_factor=want_stats,
+                    device=device, mesh=mesh)
             else:
                 out = chol_solve_dist_from_store(
                     f, "Kxx", y_1hot, jitter=jitter, check_finite=True,
-                    return_factor=want_stats, device=device)
+                    return_factor=want_stats,
+                    device=device, mesh=mesh)
             a, rel, iters = out[:3]
             print(f"refined to rel residual {rel:.2e} in {iters} iterations")
             if rel > 1e-6:
@@ -205,16 +223,25 @@ def main(argv=None):
                   "first; the same outputs)")
     p.add_argument("--device", default="cuda",
                    help="torch device for --solver=chol/chol_ir/chol_dist")
+    multihost.add_group_flags(p)
     a = p.parse_args(argv)
     if a.in_path is None:
         p.error("--in_path is required")
     err = flag_error(a.solver, a.jitter, a.variances, a.evidence, a.lpd)
     if err:
         p.error(err)
-    run(configs.load(a.config), a.in_path, datasets_path=a.datasets_path,
-        device=resolve_device(a.device), jitter=a.jitter, solver=a.solver,
-        variances=a.variances, evidence=a.evidence, lpd=a.lpd,
-        stream=a.stream, store_backend=a.store_backend)
+    if a.coordinator_address and a.solver != "chol_dist":
+        p.error("--coordinator_address needs --solver=chol_dist (the "
+                "row-sharded factor)")
+    device, mesh = multihost.join_from_flags(a)
+    try:
+        run(configs.load(a.config), a.in_path,
+            datasets_path=a.datasets_path, device=device, jitter=a.jitter,
+            solver=a.solver, variances=a.variances, evidence=a.evidence,
+            lpd=a.lpd, stream=a.stream, store_backend=a.store_backend,
+            mesh=mesh)
+    finally:
+        multihost.shutdown()
 
 
 if __name__ == "__main__":

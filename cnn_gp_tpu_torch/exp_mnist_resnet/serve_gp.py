@@ -20,8 +20,9 @@ import numpy as np
 from cnn_gp_tpu_torch import configs, settings
 from cnn_gp_tpu_torch.data import DatasetFromConfig
 from cnn_gp_tpu_torch.ops.solve import accuracy
+from cnn_gp_tpu_torch.parallel import multihost
 from cnn_gp_tpu_torch.serving import GPPredictor, load_posterior
-from cnn_gp_tpu_torch.utils import add_bool_flag, resolve_device
+from cnn_gp_tpu_torch.utils import add_bool_flag
 
 
 class ConfigMismatch(ValueError):
@@ -32,10 +33,11 @@ class ConfigMismatch(ValueError):
 def run(config_name: str, posterior_path: str, *, datasets_path: str,
         device, batch_size: int = 128, variances: bool = False,
         block: int = 2048, factor_cache: str = "",
-        allow_settings_mismatch: bool = False) -> dict:
+        allow_settings_mismatch: bool = False, mesh=None) -> dict:
     """Serve the config's splits from the posterior.  Returns
     ``{split: (accuracy, predictions, variances or None)}``; a posterior
-    solved under another config is refused."""
+    solved under another config is refused.  ``mesh`` row-shards the
+    variance factor over a rank group."""
     settings.disable_tf32()
     posterior = load_posterior(posterior_path)
     print(f"posterior: n={posterior.n} classes={posterior.alpha.shape[1]} "
@@ -57,7 +59,8 @@ def run(config_name: str, posterior_path: str, *, datasets_path: str,
     if variances:
         t0 = time.perf_counter()
         predictor.prepare_variances(block=block,
-                                    factor_cache=factor_cache or None)
+                                    factor_cache=factor_cache or None,
+                                    mesh=mesh)
         cache = f", cache at {factor_cache}" if factor_cache else ""
         print(f"variance factor ready (no solve{cache}) in "
               f"{time.perf_counter() - t0:.1f}s")
@@ -110,15 +113,19 @@ def main(argv=None):
                   "(cnn_gp_tpu_torch.settings)")
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on")
+    multihost.add_group_flags(p)
     a = p.parse_args(argv)
+    device, mesh = multihost.join_from_flags(a)
     try:
         run(a.config, a.posterior, datasets_path=a.datasets_path,
-            device=resolve_device(a.device), batch_size=a.batch_size,
+            device=device, batch_size=a.batch_size,
             variances=a.variances, block=a.block,
             factor_cache=a.factor_cache,
-            allow_settings_mismatch=a.allow_settings_mismatch)
+            allow_settings_mismatch=a.allow_settings_mismatch, mesh=mesh)
     except ConfigMismatch as e:
         raise SystemExit(f"serve_gp: {e}") from None
+    finally:
+        multihost.shutdown()
 
 
 if __name__ == "__main__":

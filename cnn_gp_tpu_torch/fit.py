@@ -24,7 +24,12 @@ name the leaves.  Three paths to the negative marginal log-likelihood:
   assembled into the ``CardFactor`` buffer, the value from the factor's
   log-diagonal, and the trace term of the cotangent estimated with
   Hutchinson probes, so that each tile's cotangent is a rank-(P + C)
-  product built on the device and nothing O(N^2) leaves it.
+  product built on the device and nothing O(N^2) leaves it.  With
+  ``mesh=`` the factor is the row-sharded ``ShardedFactor``: each rank
+  assembles its rows, the refinement residual and the step's loss and
+  gradient are rank 0's on every rank (so that every rank takes the same
+  refinement stop and ``fit_large`` step guard, and the ranks' iterates
+  stay equal), and the VJP sweep is whole on every rank.
 
 Ragged edge tiles are sliced; the JAX package pads them with cyclic copies
 of real rows whose cotangent is zero, so the sums are the same.  Nothing
@@ -45,8 +50,9 @@ from . import settings
 from .convert import leaf_items, load_leaves, save_leaves
 from .kernels import apply_kernel
 from .parallel import scheduler
-from .parallel.chol_dist import CardFactor
+from .parallel.chol_dist import _factor_for, _mesh_device
 from .parallel.device_large import _assemble_scaled, _matvec_scan
+from .parallel.mesh import agree, broadcast_array
 from .parallel.gram import _on_device, compute_gram_diag, gram_in_memory
 
 __all__ = ["neg_marginal_log_likelihood", "fit",
@@ -288,15 +294,17 @@ class ProbedNMLL:
     Frobenius norm (from block-row norms of U, Z, A), each draw weighted
     by 2/(k p) (``default_rng((seed, 1))``): unbiased, with the variance
     where the cotangent mass is.  Diagonal tiles are always swept.
-    ``refine_iters=0`` drops the solve's residual sweep."""
+    ``refine_iters=0`` drops the solve's residual sweep.  ``mesh``
+    row-shards the factor over a rank group (see the module docstring)."""
 
     def __init__(self, x, y, *, jitter: float = 1e-6, batch_size: int = 128,
                  block: int = 1024, probes: int = 16, refine_iters: int = 1,
-                 tile_fraction: float = 1.0, device):
+                 tile_fraction: float = 1.0, device=None, mesh=None):
         if not 0.0 < tile_fraction <= 1.0:
             raise ValueError(f"tile_fraction must be in (0, 1], got "
                              f"{tile_fraction}")
-        self.device = torch.device(device)
+        self.device = _mesh_device(device, mesh)
+        self.mesh = mesh
         settings.check_precision_on(self.device)
         self.x_all = _on_device(x, self.device)
         self.y64 = np.asarray(y, np.float64)
@@ -306,7 +314,7 @@ class ProbedNMLL:
         self.probes = probes
         self.refine_iters = refine_iters
         self.tile_fraction = tile_fraction
-        self.factor = CardFactor(n, block, pad_to=b, device=self.device)
+        self.factor = _factor_for(n, block, self.device, mesh, pad_to=b)
         nt = -(-n // b)
         self.diag_tiles = np.asarray([(i * b, i * b) for i in range(nt)],
                                      np.int64)
@@ -370,9 +378,9 @@ class ProbedNMLL:
             # 2) the scaled Gram straight into the factor buffer; the
             # previous step's factor goes first (two N_pad^2 buffers would
             # be resident otherwise)
-            self.factor.l = None
+            self.factor.release()
             k = _assemble_scaled(model, self.x_all, s_dev, b, n,
-                                 self.factor.n_pad)
+                                 self.factor.n_pad, self.mesh)
             tick("assemble")
             self.factor._factorize_dev(k)
             del k
@@ -391,10 +399,17 @@ class ProbedNMLL:
             rnorm = np.linalg.norm(rs, axis=0)
             rnorm[rnorm == 0] = 1.0
             a_s = self.factor.solve(rs.astype(np.float32)).astype(np.float64)
+            root = self.mesh is None or self.mesh.rank == 0
             for _ in range(self.refine_iters):
-                a_dev = torch.as_tensor(a_s.astype(np.float32), device=dev)
-                r = rs - _matvec_scan(model, self.x_all, s_dev, a_dev, b,
-                                      n).cpu().numpy().astype(np.float64)
+                r = None
+                if root:
+                    a_dev = torch.as_tensor(a_s.astype(np.float32),
+                                            device=dev)
+                    r = rs - _matvec_scan(model, self.x_all, s_dev, a_dev,
+                                          b, n).cpu().numpy().astype(
+                                              np.float64)
+                if self.mesh is not None:     # rank 0's residual stops
+                    r = broadcast_array(r, self.mesh)   # every rank
                 if float(np.max(np.linalg.norm(r, axis=0) / rnorm)) \
                         <= self.tol:
                     break
@@ -426,6 +441,12 @@ class ProbedNMLL:
         grads = _tile_vjp_sweep(model, self.x_all,
                                 [(i0, j0, w) for (i0, j0), w in zip(offs, ws)],
                                 cotangent, b)
+        if self.mesh is not None:
+            # rank 0's step on every rank: the fit_large guard and the
+            # iterates then agree bit for bit
+            loss = agree(loss if root else None, self.mesh)
+            grads = {k: broadcast_array(v, self.mesh)
+                     for k, v in grads.items()}
         tick("grad_vjp")
         return loss, grads
 
@@ -438,7 +459,7 @@ def fit_large(model, x, y, steps: int = 30,
               refine_iters: int = 1, backtrack: bool = True,
               backtrack_factor: float = 0.5, backtrack_tol: float = 1e-3,
               min_learning_rate: float = 1e-3, *,
-              device) -> Tuple[object, np.ndarray]:
+              device=None, mesh=None) -> Tuple[object, np.ndarray]:
     """Type-II ML at Gram-assembly scale: the :func:`fit` loop driven by
     :func:`nmll_value_and_grad_tiled` (``grad="exact"``) or by
     :class:`ProbedNMLL` (``grad="probed"``: Hutchinson cotangents through
@@ -454,18 +475,24 @@ def fit_large(model, x, y, steps: int = 30,
     the learning rate is multiplied by ``backtrack_factor`` (floored at
     ``min_learning_rate``).  ``learning_rate=None`` is 0.1 for exact and
     0.05 for probed gradients.  ``verbose`` prints one line per step with
-    its wall seconds and phases."""
+    its wall seconds and phases.  ``mesh`` (probed gradients only)
+    row-shards :class:`ProbedNMLL`'s factor over a rank group; every rank
+    then takes the same steps."""
     if grad not in ("exact", "probed"):
         raise ValueError(f"grad must be 'exact' or 'probed', got {grad!r}")
+    if mesh is not None and grad != "probed":
+        raise ValueError("mesh= row-shards the probed path's factor; "
+                         "grad='exact' solves on the host")
     if learning_rate is None:
         learning_rate = 0.1 if grad == "exact" else 0.05
-    device = torch.device(device)
+    device = _mesh_device(device, mesh)
     plan = None
     if grad == "probed":
         plan = ProbedNMLL(x, y, jitter=jitter, batch_size=batch_size,
                           block=block, probes=probes,
                           tile_fraction=tile_fraction,
-                          refine_iters=refine_iters, device=device)
+                          refine_iters=refine_iters, device=device,
+                          mesh=mesh)
     else:
         x = _on_device(x, device)
 

@@ -1,7 +1,7 @@
 """Large-N GP classification with the Gram never leaving the card.
 
 PyTorch counterpart of ``cnn_gp_tpu/parallel/device_large.py``, on one
-card:
+card or, with ``mesh=``, row-sharded over a rank group:
 
 * the Jacobi-equilibrated Gram ``M = D^-1/2 (K + jr I) D^-1/2`` (unit
   diagonal) is assembled, lower tiles only, straight into the
@@ -18,6 +18,15 @@ card:
   does not clear ``tol``;
 * scores ``Kzx @ A`` and posterior variances are computed the same way,
   by tile regeneration, so the cross Grams are never resident.
+
+With ``mesh=`` the factor is ``chol_dist.ShardedFactor``: each rank
+assembles only the lower tiles that touch its rows, cropped to them (a
+tile that straddles two ranks is computed on both), so no rank holds
+more than its rows of the system.  The cross blocks of the variances and
+the scores are swept whole on every rank, as the JAX package's are; the
+residual sweeps (the matvec and its sampled estimate), whose numbers
+decide whether refinement and escalation run, are run on rank 0 alone
+and handed to every rank.
 
 Every tile goes through ``parallel.gram._tile_body``, so the tiles of a
 ConvNet-GP model run on the CUDA megakernel.  Nothing is padded at the
@@ -38,8 +47,9 @@ from .. import settings
 from ..ops import megakernel
 from ..ops import solve as solve_ops
 from . import scheduler
-from .chol_dist import CardFactor
+from .chol_dist import _factor_for, _mesh_device
 from .gram import _on_device, _tile_body, compute_gram_diag
+from .mesh import Mesh, agree, broadcast_array, row_span
 
 __all__ = ["classify_device_large", "gram_matvec_regen", "scores_regen",
            "make_scores_fn", "rebuild_factor", "variances_from_factor"]
@@ -73,16 +83,34 @@ def _identity(n_pad: int, device) -> torch.Tensor:
 
 
 @torch.no_grad()
-def _assemble_scaled(model, x_all, s, b, n, n_pad) -> torch.Tensor:
+def _assemble_scaled(model, x_all, s, b, n, n_pad,
+                     mesh: Optional[Mesh] = None) -> torch.Tensor:
     """The scaled, identity-padded system matrix: its lower tile triangle
     (with the diagonal) written into a fresh [n_pad, n_pad] float32 buffer
     whose rows and columns in [n, n_pad) are an exact identity block.  The
-    upper triangle is not written: the factor does not read it."""
+    upper triangle is not written: the factor does not read it.
+
+    With ``mesh`` the buffer is born row-sharded: this rank's
+    [rows_local, n_pad] rows ``row_span(n_pad, mesh)``, from the lower
+    tiles that touch them, each cropped to the rows the rank holds."""
     spec = megakernel.match(model)
-    k = _identity(n_pad, x_all.device)
+    if mesh is None:
+        k = _identity(n_pad, x_all.device)
+        for i0, j0 in _lower_offsets(n, b):
+            blk = _scaled_tile(model, spec, x_all, s, i0, j0, b)
+            k[i0:i0 + blk.shape[0], j0:j0 + blk.shape[1]] = blk
+        return k
+    r0, r1 = row_span(n_pad, mesh)
+    k = torch.zeros((r1 - r0, n_pad), dtype=torch.float32,
+                    device=x_all.device)
+    idx = torch.arange(r1 - r0, device=x_all.device)
+    k[idx, idx + r0] = 1.0
     for i0, j0 in _lower_offsets(n, b):
+        g0, g1 = max(i0, r0), min(i0 + b, n, r1)
+        if g0 >= g1:                 # no row of this tile is the rank's
+            continue
         blk = _scaled_tile(model, spec, x_all, s, i0, j0, b)
-        k[i0:i0 + blk.shape[0], j0:j0 + blk.shape[1]] = blk
+        k[g0 - r0:g1 - r0, j0:j0 + blk.shape[1]] = blk[g0 - i0:g1 - i0]
     return k
 
 
@@ -233,30 +261,35 @@ def gram_matvec_regen(model, X, a: np.ndarray, *, batch_size: int = 128,
 
 @torch.no_grad()
 def rebuild_factor(model, train_x, scalings, *, batch_size: int = 128,
-                   block: int = 2048, device):
+                   block: int = 2048, device=None,
+                   mesh: Optional[Mesh] = None):
     """Reassemble the equilibrated system a prior solve factored (``M``,
     unit diagonal, fixed by the Jacobi ``scalings``) straight into the
     factor buffer and refactor it: assembly and factor only, no solve.
+    ``mesh`` selects the row-sharded factor (each rank assembles its
+    rows).
 
     Returns ``(factor, x_all, s_dev)``, the triple
     :func:`variances_from_factor` consumes."""
-    device = torch.device(device)
+    device = _mesh_device(device, mesh)
     settings.check_precision_on(device)
     x_all = _on_device(train_x, device)
     n, b = len(x_all), batch_size
     s = torch.as_tensor(np.asarray(scalings, np.float32), device=device)
-    factor = CardFactor(n, block, pad_to=b, device=device)
+    factor = _factor_for(n, block, device, mesh, pad_to=b)
     factor._factorize_dev(_assemble_scaled(model, x_all, s, b, n,
-                                           factor.n_pad))
+                                           factor.n_pad, mesh))
     return factor, x_all, s
 
 
 @torch.no_grad()
-def variances_from_factor(factor: CardFactor, model, x_all: torch.Tensor,
+def variances_from_factor(factor, model, x_all: torch.Tensor,
                           s_dev: torch.Tensor, xz, b: int, n: int, snap,
                           a_scaled: Optional[np.ndarray] = None):
     """GP posterior variances ``k_zz - || L^-1 (s * k_xz) ||^2`` for one
-    query split through a live factor of M (empty-split safe).  ``k_zz``
+    query split through a live factor of M, a ``CardFactor`` or a
+    ``ShardedFactor`` (empty-split safe; the sharded forward solve takes
+    rank 0's cross columns).  ``k_zz``
     comes from ``compute_gram_diag`` per batch; the scaled cross
     columns are built per [n, 512] block and never exist in full.  Accuracy
     is the float32 accumulation floor, about eps32 * k_zz absolute.
@@ -319,7 +352,8 @@ def classify_device_large(model, train_x, train_y, *splits,
                           residual_accept_frac: float = 1.0,
                           residual_sample_seed: Optional[int] = None,
                           residual_max_row_gate: float = 50.0,
-                          verbose: bool = True, device):
+                          verbose: bool = True, device=None,
+                          mesh: Optional[Mesh] = None):
     """GP classification at scales where nothing N^2 may leave the card.
 
     ``splits`` are (x, labels) pairs.  Returns ``(accuracies, info)``,
@@ -347,6 +381,13 @@ def classify_device_large(model, train_x, train_y, *splits,
     ``K + jitter * mean(diag K) * I``.  With ``variances=True``,
     ``info["variances"]`` holds per-split posterior variances through the
     float32 factor (float64 oracle: ``ops.solve.predictive_variance``).
+
+    ``mesh`` selects the row-sharded factor on ``mesh.device`` (even for a
+    world of one): each rank assembles and holds its rows.  Rank 0's train
+    diagonal, fresh seed, sampled estimates and residual sweeps are handed
+    to every rank, so that every rank takes the same accept, escalation
+    and refinement decisions; every rank returns the same ``info``, apart
+    from its own timings and peaks.
     """
     if residual_check not in ("full", "sampled"):
         raise ValueError(f"residual_check must be 'full' or 'sampled', "
@@ -357,11 +398,14 @@ def classify_device_large(model, train_x, train_y, *splits,
     if not residual_max_row_gate > 1.0:
         raise ValueError(f"residual_max_row_gate must be > 1, got "
                          f"{residual_max_row_gate}")
-    if residual_sample_seed is None:
+    device = _mesh_device(device, mesh)
+    root = mesh is None or mesh.rank == 0
+    if residual_sample_seed is None and root:
         residual_sample_seed = int(np.random.SeedSequence().entropy
                                    % (2 ** 32))
+    if mesh is not None:
+        residual_sample_seed = agree(residual_sample_seed, mesh)
     residual_sample_seed = int(residual_sample_seed)
-    device = torch.device(device)
     settings.check_precision_on(device)
     on_card = device.type == "cuda"
     n = len(train_x)
@@ -388,20 +432,27 @@ def classify_device_large(model, train_x, train_y, *splits,
             print(f"[classify_device_large] {name}: {t[name]:.1f}s{peak}",
                   flush=True)
 
-    factor = CardFactor(n, block, pad_to=b, device=device)
+    factor = _factor_for(n, block, device, mesh, pad_to=b)
     n_pad = factor.n_pad
     x_all = _on_device(train_x, device)
 
+    def from_root(fn, *args):
+        """``fn(*args)`` on rank 0, its numpy result on every rank."""
+        if mesh is None:
+            return fn(*args)
+        return broadcast_array(fn(*args) if root else None, mesh)
+
     # 1. diagonal -> Jacobi scaling
-    diag = compute_gram_diag(model, x_all, device=device, batch_size=b,
-                             progress=False).astype(np.float64)
+    diag = from_root(lambda: compute_gram_diag(
+        model, x_all, device=device, batch_size=b,
+        progress=False).astype(np.float64))
     jitter_raw = jitter * float(np.mean(diag))
     s64 = 1.0 / np.sqrt(diag + jitter_raw)
     s_dev = torch.as_tensor(s64.astype(np.float32), device=device)
     tick("diag+scale")
 
     # 2. scaled Gram (lower triangle) straight into the factor buffer
-    k = _assemble_scaled(model, x_all, s_dev, b, n, n_pad)
+    k = _assemble_scaled(model, x_all, s_dev, b, n, n_pad, mesh)
     tick("assemble")
 
     # 3. blocked in-place Cholesky: k becomes the factor
@@ -416,13 +467,20 @@ def classify_device_large(model, train_x, train_y, *splits,
     y_norm[y_norm == 0] = 1.0
 
     def matvec(a64):
-        a_dev = torch.as_tensor(np.asarray(a64, np.float32), device=device)
-        return _matvec_scan(model, x_all, s_dev, a_dev, b,
-                            n).cpu().numpy().astype(np.float64)
+        def sweep():
+            a_dev = torch.as_tensor(np.asarray(a64, np.float32),
+                                    device=device)
+            return _matvec_scan(model, x_all, s_dev, a_dev, b,
+                                n).cpu().numpy().astype(np.float64)
+        return from_root(sweep)
 
     def sampled(a64, seed):
-        return _sampled_residual(model, x_all, s_dev, a64, ys, y_norm, b, n,
-                                 residual_sample_rows, seed)
+        def estimate():
+            return _sampled_residual(model, x_all, s_dev, a64, ys, y_norm,
+                                     b, n, residual_sample_rows, seed)
+        if mesh is None:
+            return estimate()
+        return agree(estimate() if root else None, mesh)
 
     a = factor.solve(ys.astype(np.float32)).astype(np.float64)
     estimated = False
@@ -491,7 +549,7 @@ def classify_device_large(model, train_x, train_y, *splits,
         split_scores = [s_ for _, s_ in out]
         tick("variances+scores")
 
-    factor.l = None                          # release ~N^2 for scoring
+    factor.release()                         # release ~N^2 for scoring
 
     # 5. per-split scores by regeneration; only [n_split, C] is fetched
     accs, preds, scores_list = [], [], []

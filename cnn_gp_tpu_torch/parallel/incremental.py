@@ -33,6 +33,13 @@ Two host-memory modes:
   (the ``classify_device_large`` arithmetic, one Gram sweep per residual
   evaluation, float32 accumulation: a floor near 1e-6 relative).
 
+With ``mesh=`` the factor is ``chol_dist.ShardedFactor(capacity=)``,
+row-sharded over the rank group: its ``extend`` and ``extend_device``
+agree on the positive-definiteness gate before any rank writes.  The
+cross Grams are computed whole on every rank; the refinement residuals
+are computed on rank 0 alone and handed to every rank, so that every
+rank stops refining at the same sweep.
+
 For batch (non-incremental) large-N classification use
 ``device_large.classify_device_large``.
 """
@@ -49,9 +56,11 @@ from .. import serving
 from ..ops import megakernel
 from ..ops import solve as solve_ops
 from . import scheduler
-from .chol_dist import (CardFactor, _blocked_residual_fn, _ir_solve,
+from .chol_dist import (_blocked_residual_fn, _factor_for, _ir_solve,
+                        _mesh_device, _root_residual,
                         variances_from_cross_host)
 from .device_large import _assemble_scaled, _matvec_scan, _scaled_tile
+from .mesh import Mesh, agree
 from .gram import _tile_body, compute_gram, compute_gram_diag, gram_in_memory
 
 __all__ = ["IncrementalGP"]
@@ -75,13 +84,16 @@ class IncrementalGP:
     residuals come from regenerated float32 tiles (see the module
     docstring), ``tol`` is clamped to their floor and ``rel_residual`` is
     reported in scaled space; ``_resolve`` states both conventions.
+
+    ``mesh`` row-shards the factor over a rank group on ``mesh.device``;
+    every rank makes the same calls with the same batches.
     """
 
     def __init__(self, model, capacity: int, batch_size: int = 128,
                  block: int = 256, jitter: float = 0.0,
                  refine_iters: int = 10, tol: float = 1e-10,
                  n_classes: Optional[int] = None, retain_gram: bool = True,
-                 *, device):
+                 *, device=None, mesh: Optional[Mesh] = None):
         self.model = model
         self.capacity = int(capacity)
         self.batch_size = batch_size
@@ -90,7 +102,8 @@ class IncrementalGP:
         self.refine_iters = refine_iters
         self.tol = tol
         self.n_classes = n_classes
-        self.device = torch.device(device)
+        self.device = _mesh_device(device, mesh)
+        self.mesh = mesh
         # the raw float32 Gram at full capacity, paged in as rows arrive
         # and written in place; None when nothing O(N^2) stays on the host
         self._k32 = (np.zeros((self.capacity, self.capacity), np.float32)
@@ -101,7 +114,7 @@ class IncrementalGP:
         self._labels = None
         self._s = None                    # float64 equilibration scalings
         self._jitter_raw = None
-        self._factor: Optional[CardFactor] = None
+        self._factor = None
         self._alpha = None                # float64 posterior weights
         self.rel_residual = None
         self.refinements = None
@@ -166,8 +179,8 @@ class IncrementalGP:
                             dtype=torch.float32, device=self.device)
         x_dev[:n] = torch.from_numpy(x).to(self.device)
         # pad_to=batch_size: the JAX package's factor geometry
-        f = CardFactor(n, self.block, pad_to=b, capacity=self.capacity,
-                       device=self.device)
+        f = _factor_for(n, self.block, self.device, self.mesh, pad_to=b,
+                        capacity=self.capacity)
         if self._k32 is not None:
             k32 = self._k32[:n, :n]         # assembled in place
             compute_gram(self.model, x_dev[:n], device=self.device,
@@ -187,7 +200,7 @@ class IncrementalGP:
                                device=self.device)
             s_dev[:n] = torch.from_numpy(s.astype(np.float32))
             k = _assemble_scaled(self.model, x_dev[:n], s_dev[:n], b, n,
-                                 f.n_pad)
+                                 f.n_pad, self.mesh)
             self._tick("gram")
             f._factorize_dev(k)
             self._s_dev = s_dev
@@ -289,8 +302,8 @@ class IncrementalGP:
         n, s = self.n, self._s
         y64 = solve_ops.one_hot_targets(self._labels, self.n_classes)
         if self._k32 is not None:
-            residual = _blocked_residual_fn(self._k32[:n, :n], y64,
-                                            self._jitter_raw)
+            residual = _root_residual(_blocked_residual_fn(
+                self._k32[:n, :n], y64, self._jitter_raw), self.mesh)
 
             def precond(r64):
                 return s[:, None] * self._factor.solve(
@@ -316,6 +329,8 @@ class IncrementalGP:
                               n).cpu().numpy().astype(np.float64)
             r = ys - ma
             return r, float(np.max(np.linalg.norm(r, axis=0) / y_norm))
+
+        residual = _root_residual(residual, self.mesh)
 
         def precond(r64):
             return self._factor.solve(
@@ -350,10 +365,14 @@ class IncrementalGP:
         serves this object's predictions and, after its solve-free factor
         rebuild, its variances.  Returns the final path."""
         self._require_data()
-        return serving.save_posterior(
-            path, train_x=self._x_dev[:self.n].cpu().numpy(),
-            alpha=self._alpha, scalings=self._s,
-            jitter_raw=self._jitter_raw, config_name=config_name)
+        args = dict(train_x=self._x_dev[:self.n].cpu().numpy(),
+                    alpha=self._alpha, scalings=self._s,
+                    jitter_raw=self._jitter_raw, config_name=config_name)
+        if self.mesh is None:
+            return serving.save_posterior(path, **args)
+        # rank 0 writes; the others take its path once the file is whole
+        return agree(serving.save_posterior(path, **args)
+                     if self.mesh.rank == 0 else None, self.mesh)
 
     @torch.no_grad()
     def scores(self, x) -> np.ndarray:

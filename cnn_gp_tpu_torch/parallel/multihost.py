@@ -31,7 +31,8 @@ import torch.distributed as dist
 
 from .mesh import local_device
 
-__all__ = ["initialize", "worker_identity", "shutdown"]
+__all__ = ["initialize", "worker_identity", "shutdown", "add_group_flags",
+           "join_from_flags"]
 
 
 def initialize(coordinator_address: Optional[str] = None,
@@ -81,3 +82,30 @@ def shutdown() -> None:
     """Leave the process group, if one was joined."""
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
+
+
+def add_group_flags(p) -> None:
+    """The flags that join a driver to a process group (``save_kernel``'s,
+    and ``--device``'s meaning stays the rank's device)."""
+    p.add_argument("--coordinator_address", default=None,
+                   help="host:port of the torch.distributed rendezvous (or "
+                        "'env' under torchrun); when set, the factor is "
+                        "row-sharded over the group's ranks")
+    p.add_argument("--num_processes", type=int, default=None,
+                   help="process count of the group")
+    p.add_argument("--process_id", type=int, default=None,
+                   help="this process's rank in the group")
+
+
+def join_from_flags(a):
+    """``(device, mesh)`` for a driver's parsed flags: without
+    ``--coordinator_address`` the device ``a.device`` names and no mesh;
+    with it, the rank's device and the group's mesh (a world of one too,
+    so the sharded factor runs)."""
+    from ..utils import resolve_device
+    from .mesh import make_mesh
+    if not a.coordinator_address:
+        return resolve_device(a.device), None
+    device = initialize(a.coordinator_address, a.num_processes,
+                        a.process_id, device=a.device)
+    return device, make_mesh(device=device)

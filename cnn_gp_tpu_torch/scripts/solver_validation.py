@@ -16,7 +16,11 @@ already on the card, float64 refinement) and ``device_large``
 N^2 on the host, its jitter the same absolute jitter) and ``cg``
 (``cg_solve_sharded`` on ``make_mesh``: Jacobi-preconditioned block CG,
 the Gram row-sharded over the rank group, float32 as in the JAX script,
-``--cg_tol`` / ``--cg_maxiter``).
+``--cg_tol`` / ``--cg_maxiter``).  With ``--coordinator_address`` (and
+``--num_processes`` / ``--process_id``, or ``env`` under torchrun) every
+rank assembles the Gram on its card and the ``chol_dist`` row runs the
+factor row-sharded over the group (``ShardedFactor``); the other rows
+stay on each rank's card.
 
     python -m cnn_gp_tpu_torch.scripts.solver_validation \\
         --config=mnist_as_tf --n=4096
@@ -36,10 +40,9 @@ from cnn_gp_tpu_torch.data import synthetic_arrays
 from cnn_gp_tpu_torch.ops import solve
 from cnn_gp_tpu_torch.parallel import (cg_solve_sharded,
                                        classify_device_large, gram_device,
-                                       make_mesh)
+                                       make_mesh, multihost)
 from cnn_gp_tpu_torch.parallel.chol_dist import chol_solve_dist
-from cnn_gp_tpu_torch.utils import (add_bool_flag, resolve_device,
-                                    synced_clock)
+from cnn_gp_tpu_torch.utils import add_bool_flag, synced_clock
 
 SOLVERS = ("scipy", "chol_ir", "chol_dist", "cg", "device_large")
 
@@ -70,7 +73,7 @@ def cond_estimate(kxx, jitter):
     return float(w[-1] / w[0]), float(w[0])
 
 
-def run(a, device) -> dict:
+def run(a, device, mesh=None) -> dict:
     solvers = a.solvers.split(",")
     unknown = sorted(set(solvers) - set(SOLVERS))
     if unknown:
@@ -120,11 +123,12 @@ def run(a, device) -> dict:
             "whole-matrix f32 + IR"))
     if "chol_dist" in solvers:
         def _dist():
-            sol, _, iters = chol_solve_dist(kxx.copy(), y, jitter=jitter,
-                                            block=a.block, k_dev=k_dev,
-                                            device=device)
-            return sol, (f"blocked f32 + IR, {iters} refinements "
-                         f"(card-resident gram)")
+            sol, _, iters = chol_solve_dist(
+                kxx.copy(), y, jitter=jitter, block=a.block, k_dev=k_dev,
+                device=device, mesh=mesh)
+            where = (f"row-sharded over {mesh.size} ranks" if mesh
+                     else "card-resident gram")
+            return sol, f"blocked f32 + IR, {iters} refinements ({where})"
         record("chol_dist", _dist)
     del k_dev                 # chol_dist consumed it
     if "cg" in solvers:
@@ -192,8 +196,13 @@ def main(argv=None):
                   "compute the equilibrated condition number")
     p.add_argument("--device", default="cuda",
                    help="torch device to compute on")
+    multihost.add_group_flags(p)
     a = p.parse_args(argv)
-    return run(a, resolve_device(a.device))
+    device, mesh = multihost.join_from_flags(a)
+    try:
+        return run(a, device, mesh=mesh)
+    finally:
+        multihost.shutdown()
 
 
 if __name__ == "__main__":

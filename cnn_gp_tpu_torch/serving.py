@@ -18,8 +18,12 @@ The artifact is a flat .npz (float32 inputs, float64 posterior) with a
 format version and the kernel settings snapshot recorded for provenance.
 The optional on-disk factor cache (``prepare_variances(factor_cache=dir)``)
 has the JAX package's files (``l.npy``, ``diags.npy``, ``meta.json``) with
-``n_devices = 1``, so a cache written on a one-device JAX mesh loads here
-and the reverse.
+``n_devices`` the rank count (1 without a mesh), so a cache written by
+either package loads in the other at the same rank or device count.  With
+``prepare_variances(mesh=)`` the factor is row-sharded over the ranks
+(``parallel.chol_dist.ShardedFactor``) and each rank writes and reads
+only its rows of ``l.npy``; the directory must be one that every rank
+sees.
 """
 
 from __future__ import annotations
@@ -156,7 +160,7 @@ class GPPredictor:
 
     def prepare_variances(self, block: int = 2048,
                           factor_cache: Optional[str] = None,
-                          write_cache: bool = True) -> None:
+                          write_cache: bool = True, mesh=None) -> None:
         """Rebuild the factor from the stored training set and scalings:
         assembly and blocked Cholesky on the card, no solve (the posterior
         is already solved).  Required once per process before
@@ -167,7 +171,11 @@ class GPPredictor:
         model, geometry and settings, the factor is loaded instead of
         rebuilt; when absent, it is written after the rebuild
         (``write_cache=False`` disables that).  A cache that is present but
-        does not match is refused, never quietly rebuilt."""
+        does not match is refused, never quietly rebuilt.
+
+        ``mesh`` (a rank group on this predictor's device) row-shards the
+        factor over the ranks; every rank calls this with the same
+        arguments, and rank 0 decides whether the cache is loaded."""
         from .parallel.device_large import rebuild_factor
 
         p = self.posterior
@@ -175,11 +183,12 @@ class GPPredictor:
             raise ValueError("posterior was saved without scalings; "
                              "variance serving needs them (save_posterior"
                              "(..., scalings=...))")
-        if factor_cache and self._try_load_factor_cache(factor_cache, block):
+        if factor_cache and self._try_load_factor_cache(factor_cache, block,
+                                                        mesh):
             return
         factor, x_all, s_dev = rebuild_factor(
             self.model, p.train_x, p.scalings, batch_size=self.batch_size,
-            block=block, device=self.device)
+            block=block, device=self.device, mesh=mesh)
         self._factor = factor
         # pin the settings at rebuild time: the variance sweeps must whiten
         # cross-columns of the SAME kernel the factor holds
@@ -214,28 +223,47 @@ class GPPredictor:
             "settings_snapshot": repr(settings.snapshot()),
         }
 
-    def _try_load_factor_cache(self, path, block: int) -> bool:
-        """Load a factor cache; False if absent.  Raises on a present but
-        mismatched one."""
-        import torch
-
-        from .parallel.chol_dist import CardFactor
-
+    def _cache_state(self, path, block: int, n_devices: int):
+        """None when no cache is at ``path``, True when it matches, else
+        the error that refuses it."""
         meta_p = os.path.join(path, "meta.json")
         if not os.path.exists(meta_p):
-            return False
+            return None
         with open(meta_p) as fh:
             meta = json.load(fh)
-        want = self._cache_meta(block)
+        want = self._cache_meta(block, n_devices)
         if meta != want:
             bad = [k for k in want if meta.get(k) != want[k]]
-            raise ValueError(
-                f"factor cache at {path} does not match this posterior/"
-                f"geometry (mismatched: {bad}); delete it or pass the "
-                f"matching block/batch_size")
+            return (f"factor cache at {path} does not match this posterior/"
+                    f"geometry (mismatched: {bad}); delete it or pass the "
+                    f"matching block/batch_size/mesh")
+        return True
+
+    def _try_load_factor_cache(self, path, block: int, mesh=None) -> bool:
+        """Load a factor cache; False if absent.  Raises on a present but
+        mismatched one.  With ``mesh`` rank 0's verdict holds on every
+        rank, and each rank reads only its rows."""
+        import torch
+
+        from .parallel.chol_dist import CardFactor, ShardedFactor
+        from .parallel.mesh import agree
+
+        state = None
+        if mesh is None or mesh.rank == 0:
+            state = self._cache_state(path, block,
+                                      1 if mesh is None else mesh.size)
+        if mesh is not None:
+            state = agree(state, mesh)
+        if state is None:
+            return False
+        if state is not True:
+            raise ValueError(state)
         p = self.posterior
-        f = CardFactor(p.n, block, pad_to=self.batch_size,
-                       device=self.device)
+        if mesh is None:
+            f = CardFactor(p.n, block, pad_to=self.batch_size,
+                           device=self.device)
+        else:
+            f = ShardedFactor(mesh, p.n, block, pad_to=self.batch_size)
         l_mm = np.lib.format.open_memmap(os.path.join(path, "l.npy"),
                                          mode="r")
         if l_mm.shape != (f.n_pad, f.n_pad):
@@ -243,12 +271,16 @@ class GPPredictor:
                              f"n_pad {f.n_pad}")
         l = f._upload_rows(lambda r0, r1: l_mm[r0:r1])
         # the diagonal blocks the solves use are the stored diag stack
-        diags = np.load(os.path.join(path, "diags.npy"))
-        bs = f.block
-        for kb in range(f.n_pad // bs):
-            l[kb * bs:(kb + 1) * bs, kb * bs:(kb + 1) * bs] = torch.tril(
-                torch.from_numpy(diags[kb]).to(f.device))
-        f.l = l
+        diags = torch.from_numpy(np.load(os.path.join(path, "diags.npy"))
+                                 ).to(f.device)
+        if mesh is None:
+            bs = f.block
+            for kb in range(f.n_pad // bs):
+                l[kb * bs:(kb + 1) * bs, kb * bs:(kb + 1) * bs] = \
+                    torch.tril(diags[kb])
+            f.l = l
+        else:
+            f.l_loc, f.diags = l, diags
         self._factor = f
         x_all = torch.as_tensor(np.asarray(p.train_x, np.float32),
                                 device=f.device).contiguous()
@@ -261,22 +293,41 @@ class GPPredictor:
         """Persist the live factor: the [n_pad, n_pad] lower triangle
         copied to a memmapped .npy in bounded row blocks (never a second
         whole host copy), the diagonal-block stack, and the identity
-        metadata."""
+        metadata.  A sharded factor's rank 0 creates ``l.npy``, each rank
+        writes its rows, and rank 0 writes ``meta.json`` last, once every
+        rank is done."""
+        from .parallel.mesh import barrier
+
         f = self._factor
-        os.makedirs(path, exist_ok=True)
-        meta = self._cache_meta(f.block)
-        rows = min(4096, f.n_pad)
-        l_mm = np.lib.format.open_memmap(
-            os.path.join(path, "l.npy"), mode="w+", dtype=np.float32,
-            shape=(f.n_pad, f.n_pad))
-        for r0 in range(0, f.n_pad, rows):
-            l_mm[r0:r0 + rows] = f.l[r0:r0 + rows].cpu().numpy()
+        mesh = getattr(f, "mesh", None)
+        root = mesh is None or mesh.rank == 0
+        l_p = os.path.join(path, "l.npy")
+        if root:
+            os.makedirs(path, exist_ok=True)
+            np.lib.format.open_memmap(l_p, mode="w+", dtype=np.float32,
+                                      shape=(f.n_pad, f.n_pad))
+        if mesh is None:
+            l, r0, r1 = f.l, 0, f.n_pad
+        else:
+            barrier(mesh)
+            l, r0, r1 = f.l_loc, f.r0, f.r1
+        l_mm = np.lib.format.open_memmap(l_p, mode="r+")
+        for a in range(r0, r1, 4096):
+            b = min(a + 4096, r1)
+            l_mm[a:b] = l[a - r0:b - r0].cpu().numpy()
         l_mm.flush()
         del l_mm
-        np.save(os.path.join(path, "diags.npy"),
-                f.diag_blocks().cpu().numpy())
-        with open(os.path.join(path, "meta.json"), "w") as fh:
-            json.dump(meta, fh)
+        if mesh is not None:
+            barrier(mesh)
+        if root:
+            np.save(os.path.join(path, "diags.npy"),
+                    f.diag_blocks().cpu().numpy())
+            meta = self._cache_meta(f.block, 1 if mesh is None
+                                    else mesh.size)
+            with open(os.path.join(path, "meta.json"), "w") as fh:
+                json.dump(meta, fh)
+        if mesh is not None:
+            barrier(mesh)
 
     def variances(self, z) -> np.ndarray:
         """GP posterior variances ``k_zz - k_zx (K + jr I)^-1 k_xz``

@@ -214,3 +214,221 @@ def sharded(mesh, out_dir):
     res["e2e_pred"] = solve.predict(kzx / s ** 2, a)
     res["e2e_rel_it"] = np.array([rel, it])
     return res
+
+
+# -- the row-sharded factor (tests/test_torch_chol_sharded.py) --------------
+
+FACTOR_CASES = ((37, 8), (100, 16), (130, 32))
+EXT = dict(n=100, seed=11, n0=50, m=30, block=16)   # new rows cross ranks
+INC_BATCHES = ((48, 0), (20, 1), (33, 2))
+
+
+def spd_chol(n, seed=0):
+    """The SPD test matrices of tests/test_chol_dist.py."""
+    r = np.random.RandomState(seed)
+    a = r.randn(n, n)
+    return a @ a.T / n + np.eye(n)
+
+
+def inc_data(n, seed):
+    """tests/test_incremental.py's batches."""
+    rng = np.random.RandomState(seed)
+    return (rng.rand(n, 1, 8, 8).astype(np.float32),
+            rng.randint(0, 4, size=n))
+
+
+def inc_model():
+    from cnn_gp_tpu_torch import Conv2d, ReLU, Sequential
+    return Sequential(Conv2d(3), ReLU(), Conv2d(3), ReLU(),
+                      Conv2d(8, padding=0))
+
+
+def edge_inputs():
+    """tests/test_device_large.py's padding-edge case: n = 37, tile 16,
+    block 8."""
+    from cnn_gp_tpu_torch.data import synthetic_arrays
+    return synthetic_arrays(n_train=37, n_test=9, shape=(1, 7, 7), seed=3)
+
+
+def probed_inputs():
+    """tests/test_torch_fit_probed.py's problem: n = 37 at 14 x 14."""
+    from cnn_gp_tpu_torch.data import synthetic_arrays
+    from cnn_gp_tpu_torch.ops import solve
+    x, labels, _, _ = synthetic_arrays(n_train=37, n_test=0,
+                                       shape=(1, 14, 14), seed=5)
+    return x, solve.one_hot_targets(labels).astype(np.float32)
+
+
+def chol_sharded(mesh, out_dir):
+    """Every check of tests/test_torch_chol_sharded.py that runs on ranks:
+    the factor, its solves and extension, the solvers, the store solvers,
+    classify_device_large, the factor cache, IncrementalGP and ProbedNMLL,
+    with ``mesh``.  Inputs the JAX package wrote (an HDF5 store, a
+    posterior, a factor cache) and the numpy inputs are in ``out_dir``."""
+    import torch
+    from cnn_gp_tpu_torch.data import GramStore
+    from cnn_gp_tpu_torch.fit import ProbedNMLL, fit_large
+    from cnn_gp_tpu_torch.ops import solve
+    from cnn_gp_tpu_torch.parallel import (IncrementalGP,
+                                           classify_device_large)
+    from cnn_gp_tpu_torch.parallel import chol_dist as cd
+    from cnn_gp_tpu_torch.scripts.fit_hyperparams import make_model
+    from cnn_gp_tpu_torch.serving import GPPredictor, load_posterior
+    inp = dict(np.load(os.path.join(out_dir, "inputs.npz")))
+    root = mesh.rank == 0
+    res = {}
+
+    # the factor: gathered, with zeros and NaN above the diagonal
+    for n, block in FACTOR_CASES + ((64, 16),):
+        k = spd_chol(n, seed=n)
+        f = cd.ShardedFactor(mesh, n, block)
+        res[f"straddles_{n}"] = np.array(f.rows_local % block != 0)
+        res[f"l_{n}"] = cd.cholesky_sharded(k, mesh, block=block)
+        for name, fill in (("zeros", 0.0), ("nan", np.nan)):
+            klow = np.tril(k) + np.triu(np.full_like(k, fill), 1)
+            res[f"l_{n}_{name}"] = cd.cholesky_sharded(klow, mesh,
+                                                       block=block)
+            res[f"solve_{n}_{name}"] = cd.cholesky_solve_sharded(
+                klow, inp[f"rhs_{n}"], mesh, block=block)
+
+    # solve, forward_sumsq and log_diag_sum through one live factor
+    k = spd_chol(100, seed=100)
+    f = cd.ShardedFactor(mesh, 100, 16)
+    f.factorize(k.astype(np.float32))
+    res["f_solve"] = f.solve(inp["rhs_100"])
+    res["f_sumsq"] = f.forward_sumsq(torch.from_numpy(
+        inp["w_100"])).numpy()
+    res["f_logdiag"] = np.array(f.log_diag_sum())
+
+    # extend across a rank boundary, then a refused non-PD extension
+    e = EXT
+    k = spd_chol(e["n"], seed=e["seed"]).astype(np.float32)
+    n0, m = e["n0"], e["m"]
+    f = cd.ShardedFactor(mesh, n0, e["block"], capacity=e["n"])
+    f.factorize(k[:n0, :n0])
+    f.extend(k[n0:n0 + m, :n0], k[n0:n0 + m, n0:n0 + m])
+    res["ext_l"] = f.gather().numpy()
+    res["ext_diags"] = f.diags.numpy()
+    res["ext_solve"] = f.solve(inp["rhs_ext"])
+    n1 = n0 + m
+    before = (f.l_loc.clone(), f.diags.clone(), f.n)
+    try:   # rows equal to the first ones: a singular Schur complement
+        f.extend(k[:4, :n1], k[:4, :4])
+        res["ext_refused"] = np.array(False)
+    except ValueError:
+        res["ext_refused"] = np.array(True)
+    res["ext_unchanged"] = np.array(
+        torch.equal(before[0], f.l_loc) and torch.equal(before[1], f.diags)
+        and before[2] == f.n)
+
+    # the float64-refined solvers: rank 0's matrix only
+    k, y = spd_chol(120, seed=5), solve.one_hot_targets(np.arange(120) % 10)
+    a, rel, it = cd.chol_solve_dist(k.copy() if root else None, y,
+                                    mesh=mesh, block=16)
+    res["cd_a"], res["cd_rel_it"] = a, np.array([rel, it])
+    k32 = inp["k_store"]
+    a, rel, it, fac, s = cd.chol_solve_ir32(
+        k32 if root else None, inp["y_store"], jitter=inp["jr_store"],
+        block=16, mesh=mesh, return_factor=True)
+    res["ir_a"], res["ir_rel_it"], res["ir_s"] = a, np.array([rel, it]), s
+    res["ir_var"] = cd.variances_from_cross_host(
+        fac, s, inp["kzx_store"] if root else None,
+        inp["kzz_store"] if root else None, chunk=5)
+    res["ir_ev"] = np.array(cd.evidence_from_factor(fac, s, inp["y_store"],
+                                                    a))
+    del fac
+
+    # the store solvers on the JAX package's HDF5 store: rank 0 alone
+    path = os.path.join(out_dir, "k.h5")
+    store = GramStore(path, "r") if root else _Untouchable()
+    try:
+        for name, fn, kw in (
+                ("stream", cd.chol_solve_stream_from_store, {"io_rows": 32}),
+                ("serial", cd.chol_solve_dist_from_store,
+                 {"check_finite": True})):
+            a, rel, _, fac, s = fn(store, "Kxx", inp["y_store"],
+                                   jitter=1e-6, block=16, mesh=mesh,
+                                   return_factor=True, **kw)
+            res[f"store_{name}_a"], res[f"store_{name}_rel"] = a, rel
+            res[f"store_{name}_var"] = cd.variances_from_cross_host(
+                fac, s, inp["kzx_store"] if root else None,
+                inp["kzz_store"] if root else None)
+            del fac
+    finally:
+        if root:
+            store.close()
+
+    # classify_device_large: the end-to-end data and the padding edge
+    tr_x, tr_y, te_x, te_y = e2e_inputs()
+    accs, info = classify_device_large(
+        paper_small(), tr_x, tr_y, (te_x, te_y), batch_size=32, block=32,
+        jitter=1e-4, variances=True, residual_sample_seed=0, verbose=False,
+        mesh=mesh)
+    res["large_pred"] = info["predictions"][0]
+    res["large_var"] = info["variances"][0]
+    res["large_ev"] = np.array(info["log_evidence"])
+    res["large_rel"] = np.array(info["rel_residual"])
+    tr_x, tr_y, te_x, te_y = edge_inputs()
+    _, info = classify_device_large(
+        _model(), tr_x, tr_y, (te_x, te_y), batch_size=16, block=8,
+        jitter=1e-6, verbose=False, mesh=mesh)
+    res["edge_pred"] = info["predictions"][0]
+    res["edge_rel"] = np.array(info["rel_residual"])
+    res["edge_n_pad"] = np.array(info["n_pad"])
+    res["edge_seed"] = np.array(info["residual_sample_seed"])
+
+    # the factor cache: JAX's (written on 2 devices), then the port's own
+    post = load_posterior(os.path.join(out_dir, "posterior.npz"))
+    zx = e2e_inputs()[2]
+
+    def predictor():
+        return GPPredictor(paper_small(), post, batch_size=32,
+                           device=mesh.device)
+
+    pred = predictor()
+    try:
+        pred.prepare_variances(block=32, mesh=mesh, write_cache=False,
+                               factor_cache=os.path.join(out_dir,
+                                                         "jax_cache"))
+        res["jax_cache_var"] = pred.variances(zx)
+    except ValueError as err:
+        res["jax_cache_refused"] = np.array("n_devices" in str(err))
+    cache = os.path.join(out_dir, "port_cache")
+    pred = predictor()
+    pred.prepare_variances(block=32, mesh=mesh, factor_cache=cache)
+    res["cache_written_var"] = pred.variances(zx)
+    pred = predictor()
+    pred.prepare_variances(block=32, mesh=mesh, factor_cache=cache)
+    res["cache_loaded_var"] = pred.variances(zx)
+
+    # IncrementalGP, retained mode (and regen against it), three batches
+    zx = inc_data(16, 9)[0]
+    for mode, retain in (("retained", True), ("regen", False)):
+        gp = IncrementalGP(inc_model(), capacity=128, jitter=1e-6,
+                           retain_gram=retain, batch_size=16, block=16,
+                           mesh=mesh)
+        for step, (n, seed) in enumerate(INC_BATCHES):
+            info = gp.add(*inc_data(n, seed))
+            res[f"inc_{mode}_ev{step}"] = np.array(info["log_evidence"])
+            res[f"inc_{mode}_rel{step}"] = np.array(info["rel_residual"])
+        res[f"inc_{mode}_alpha"] = gp._alpha
+        res[f"inc_{mode}_pred"] = gp.classify(zx)
+        res[f"inc_{mode}_var"] = gp.variances(zx)
+        # rank 0 writes the posterior; every rank reads it back whole
+        path = gp.save_posterior(os.path.join(out_dir, f"inc_{mode}"))
+        res[f"inc_{mode}_saved"] = np.array(np.array_equal(
+            load_posterior(path).alpha, gp._alpha))
+
+    # ProbedNMLL: value and gradient with JAX's seed
+    x, y = probed_inputs()
+    plan = ProbedNMLL(x, y, batch_size=16, block=16, mesh=mesh)
+    v, g = plan.value_and_grad(make_model(2.0, 1.0, learnable=True), seed=3)
+    res["probed_v"] = np.array(v)
+    res["probed_keys"] = np.array(sorted(g))
+    res["probed_g"] = np.array([np.asarray(g[key]).item()
+                                for key in sorted(g)])
+    # and three probed fit_large steps (the step guard agreed)
+    _, res["fit_losses"] = fit_large(
+        make_model(1.0, 0.5, learnable=True), x, y, steps=3, batch_size=16,
+        grad="probed", probes=8, block=16, mesh=mesh)
+    return res
