@@ -7,8 +7,9 @@ PyTorch counterpart of ``cnn_gp_tpu/fit.py``, with its names:
 The leaves are the model's ``nn.Parameter``s (every ``Mixture.logit``, and
 ``var_weight`` / ``var_bias`` of ``Conv2d(learnable=True)``).  ``fit`` and
 ``fit_large`` return a fitted copy and leave the input model as it was.
-Gradients come from ``torch.autograd`` through ``apply_kernel`` (the plain
-torch path) under ``settings.grad_safe``; gradients are returned as dicts
+Gradients come from ``torch.autograd`` through ``apply_kernel`` (on the
+card its layer kernels are ``autograd.Function``s whose backward
+differentiates their plain torch versions) under ``settings.grad_safe``; gradients are returned as dicts
 of float32 arrays keyed as ``convert.leaf_items`` (and ``save_leaves``)
 name the leaves.  Three paths to the negative marginal log-likelihood:
 

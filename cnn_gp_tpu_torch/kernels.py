@@ -13,6 +13,14 @@ calling it on images runs ``kernel_fn``.  ``Mixture.logit`` and the
 ``var_weight``/``var_bias`` of ``Conv2d(learnable=True)`` are
 ``nn.Parameter``s.  Nothing here needs gradients: ``kernel_fn`` runs under
 ``torch.no_grad``.
+
+On the card every ``Conv2d`` is one launch of the box-filter kernel
+(``ops/boxfilter.py::conv_maps``) and every ``ReLU`` one launch of the
+arccos kernel (``ops/arccos.py::relu_transform``); ``Sum`` and
+``Mixture`` adds and ``input_patch``'s contraction stay torch ops.
+``apply_kernel_reference`` walks the same model with the plain torch
+versions of both, on any device: the yardstick of the kernels, which the
+main path never calls.
 """
 
 from __future__ import annotations
@@ -29,7 +37,8 @@ from .kernel_patch import KernelPatch
 from .ops import arccos, boxfilter
 
 __all__ = ["NNGPKernel", "Conv2d", "ReLU", "Sequential", "Sum", "Mixture",
-           "resnet_block", "kernel_fn", "input_patch", "apply_kernel"]
+           "resnet_block", "kernel_fn", "input_patch", "apply_kernel",
+           "apply_kernel_reference"]
 
 
 def input_patch(x: torch.Tensor, y: torch.Tensor, same: bool, diag: bool,
@@ -63,11 +72,27 @@ def _finalize(kp: KernelPatch, n1: int, n2: int, diag: bool):
 def apply_kernel(model, x: torch.Tensor, y: torch.Tensor, same: bool,
                  diag: bool, diag_mask: Optional[torch.Tensor] = None
                  ) -> torch.Tensor:
-    """Kernel core on tensors that already lie on the compute device."""
+    """Kernel core on tensors that already lie on the compute device (on
+    the card: the layer kernels)."""
     if x.is_cuda:
         settings.check_precision()
     kp = input_patch(x, y, same, diag, diag_mask)
-    kp = model(kp)
+    kp = model.propagate(kp)
+    return _finalize(kp, x.shape[0], y.shape[0], diag)
+
+
+def apply_kernel_reference(model, x: torch.Tensor, y: torch.Tensor,
+                           same: bool, diag: bool,
+                           diag_mask: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """``apply_kernel`` with every layer on its plain torch version
+    (``conv_maps_reference``, ``relu_transform_reference``) on any
+    device: the yardstick that the layer kernels are held to on the
+    card."""
+    if x.is_cuda:
+        settings.check_precision()
+    kp = input_patch(x, y, same, diag, diag_mask)
+    kp = model.propagate(kp, reference=True)
     return _finalize(kp, x.shape[0], y.shape[0], diag)
 
 
@@ -107,6 +132,12 @@ class NNGPKernel(nn.Module):
         return kernel_fn(self, x, y, same, diag, diag_mask, device)
 
     def forward(self, kp: KernelPatch) -> KernelPatch:
+        return self.propagate(kp)
+
+    def propagate(self, kp: KernelPatch,
+                  reference: bool = False) -> KernelPatch:
+        """The layer's map of a patch; ``reference=True`` runs the plain
+        torch versions of the layer kernels throughout."""
         raise NotImplementedError
 
     def layers(self) -> int:
@@ -168,17 +199,18 @@ class Conv2d(NNGPKernel):
             return boxfilter.same_padding(self.kernel_size, self.dilation)
         return (self.padding, self.padding)
 
-    def forward(self, kp: KernelPatch) -> KernelPatch:
+    def propagate(self, kp: KernelPatch,
+                  reference: bool = False) -> KernelPatch:
         k = self.kernel_size
         scale = self.var_weight / (k * k)
-
-        def f(a):
-            out = boxfilter.box_filter_2d(a, k, self.stride, self.pad_lo_hi,
-                                          self.dilation)
-            return out * scale + self.var_bias
-
-        return KernelPatch(f(kp.xy), f(kp.xx), f(kp.yy), kp.same, kp.diag,
-                           kp.diag_mask)
+        conv = (boxfilter.conv_maps_reference if reference
+                else boxfilter.conv_maps)
+        # yy is xx after a ReLU of a same block: filtered once
+        maps = [kp.xy, kp.xx] + ([] if kp.yy is kp.xx else [kp.yy])
+        out = conv(maps, k, self.stride, self.pad_lo_hi, self.dilation,
+                   scale, self.var_bias)
+        return KernelPatch(out[0], out[1], out[-1] if len(out) == 3
+                           else out[1], kp.same, kp.diag, kp.diag_mask)
 
     def layers(self):
         return 1
@@ -187,7 +219,10 @@ class Conv2d(NNGPKernel):
 class ReLU(NNGPKernel):
     """Arccos-kernel ReLU nonlinearity."""
 
-    def forward(self, kp: KernelPatch) -> KernelPatch:
+    def propagate(self, kp: KernelPatch,
+                  reference: bool = False) -> KernelPatch:
+        if reference:
+            return arccos.relu_transform_reference(kp)
         return arccos.relu_transform(kp)
 
     def layers(self):
@@ -199,9 +234,10 @@ class Sequential(NNGPKernel):
         super().__init__()
         self.mods = nn.ModuleList(mods)
 
-    def forward(self, kp: KernelPatch) -> KernelPatch:
+    def propagate(self, kp: KernelPatch,
+                  reference: bool = False) -> KernelPatch:
         for mod in self.mods:
-            kp = mod(kp)
+            kp = mod.propagate(kp, reference)
         return kp
 
     def layers(self):
@@ -216,10 +252,11 @@ class Sum(NNGPKernel):
         super().__init__()
         self.mods = nn.ModuleList(mods)
 
-    def forward(self, kp: KernelPatch) -> KernelPatch:
-        total = self.mods[0](kp)
+    def propagate(self, kp: KernelPatch,
+                  reference: bool = False) -> KernelPatch:
+        total = self.mods[0].propagate(kp, reference)
         for mod in self.mods[1:]:
-            total = total + mod(kp)
+            total = total + mod.propagate(kp, reference)
         return total
 
     def layers(self):
@@ -238,11 +275,12 @@ class Mixture(NNGPKernel):
         self.logit = nn.Parameter(torch.tensor(
             np.asarray(logit_proportions, np.float32)))
 
-    def forward(self, kp: KernelPatch) -> KernelPatch:
+    def propagate(self, kp: KernelPatch,
+                  reference: bool = False) -> KernelPatch:
         proportions = torch.softmax(self.logit, dim=0).to(kp.xy.device)
-        total = self.mods[0](kp) * proportions[0]
+        total = self.mods[0].propagate(kp, reference) * proportions[0]
         for i, mod in enumerate(self.mods[1:], start=1):
-            total = total + mod(kp) * proportions[i]
+            total = total + mod.propagate(kp, reference) * proportions[i]
         return total
 
     def layers(self):

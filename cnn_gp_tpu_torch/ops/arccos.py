@@ -10,18 +10,38 @@ with ``+ f32_tiny`` under the rsqrt, the cosine clamped to [-1, 1], the
 sine argument clamped >= 0, and the same-example entries overwritten with
 ``xx'`` through the ``[Nx, Ny]`` mask.  ``acos_f32`` is the Cephes
 polynomial that the megakernel evaluates too.
+
+The plain version is ``relu_transform_reference`` (``relu_xy_reference``
+for the xy' map alone).  On the card the xy' map is one hand-written CUDA
+kernel, ``csrc/arccos.cu`` (both ``relu_impl`` forms, both ``acos_impl``
+versions, pair and diagonal modes, with or without the mask), within 1e-6
+of max|xy'| of the plain version; xx' and yy' stay torch multiplies.
+``relu_transform`` runs the plain version for CPU tensors and launches
+the kernel for CUDA tensors, or raises (a diagonal block of one set,
+whose xy' is xx', launches nothing).  ``launches`` counts kernel launches;
+``copies`` counts inputs that were not contiguous and were copied before
+a launch.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
+import types
+from typing import Optional
 
 import numpy as np
 import torch
 
 from ..kernel_patch import KernelPatch
+from . import cuda_lib
 
-__all__ = ["relu_transform", "acos_f32", "F32_TINY"]
+__all__ = ["relu_transform", "relu_transform_reference", "relu_xy_reference",
+           "acos_f32", "F32_TINY", "build", "launches", "copies"]
+
+launches = 0   # ReLU kernel launches
+copies = 0     # inputs copied to make them contiguous before a launch
+_lib = None
 
 F32_TINY = float(np.finfo(np.float32).tiny)
 _HALF_PI = math.pi / 2.0
@@ -80,22 +100,19 @@ def _xy_update_factored(xy, xx, yy, acos_fn):
     return (sin_theta + pi_minus_theta * xy) * (0.5 / math.pi)
 
 
-def relu_transform(kp: KernelPatch) -> KernelPatch:
-    """The transform on a whole patch (``cnn_gp_tpu.ops.arccos._relu_xla``,
-    which the JAX ``relu_transform`` dispatches to)."""
+def relu_xy_reference(xy: torch.Tensor, xx: torch.Tensor,
+                      yy: torch.Tensor, mask: Optional[torch.Tensor],
+                      diag: bool) -> torch.Tensor:
+    """The xy' map in plain torch (``cnn_gp_tpu.ops.arccos._relu_xla``'s
+    xy): pair mode (``xy`` [Nx, Ny, W, H], ``xx`` [Nx, W, H], ``yy`` [Ny,
+    W, H], ``mask`` [Nx, Ny] bool or None) in the ``settings.relu_impl``
+    form, or the diagonal mode (all [N, W, H], the reference form, no
+    mask)."""
     from .. import settings
     acos_fn = acos_f32 if settings.acos_impl == "poly" else torch.acos
-    xx_half = kp.xx * 0.5
-    if kp.diag:
-        if kp.same:
-            # same & diag => xy' = xx' exactly
-            return KernelPatch(xx_half, xx_half, xx_half, kp.same, kp.diag)
-        xx_yy = kp.xx * kp.yy + F32_TINY
-        xy = _xy_update(kp.xy, xx_yy, acos_fn)
-        return KernelPatch(xy, xx_half, kp.yy * 0.5, kp.same, kp.diag)
-
-    mask = kp.resolve_diag_mask()
-    xy_in = kp.xy
+    if diag:
+        return _xy_update(xy, xx * yy + F32_TINY, acos_fn)
+    xy_in = xy
     if mask is not None and settings.grad_safe:
         # Double-where: same-example entries sit at cos(theta) = 1, where
         # acos and sqrt have infinite local derivatives; their outputs are
@@ -104,13 +121,186 @@ def relu_transform(kp: KernelPatch) -> KernelPatch:
         # keeps gradients finite and changes no primal value.
         xy_in = torch.where(mask[:, :, None, None], 0.0, xy_in)
     if settings.relu_impl == "fast":
-        xy = _xy_update_factored(xy_in, kp.xx, kp.yy, acos_fn)
+        out = _xy_update_factored(xy_in, xx, yy, acos_fn)
     else:
-        xx_yy = kp.xx[:, None] * kp.yy[None, :] + F32_TINY
-        xy = _xy_update(xy_in, xx_yy, acos_fn)
+        xx_yy = xx[:, None] * yy[None, :] + F32_TINY
+        out = _xy_update(xy_in, xx_yy, acos_fn)
     if mask is not None:
         # same-example entries must equal xx' exactly
-        xy = torch.where(mask[:, :, None, None],
-                         xx_half[:, None].expand_as(xy), xy)
+        out = torch.where(mask[:, :, None, None],
+                          (xx * 0.5)[:, None].expand_as(out), out)
+    return out
+
+
+def _transform(kp: KernelPatch, xy_map) -> KernelPatch:
+    """The transform of a patch, with its xy' map from ``xy_map(xy, xx,
+    yy, mask, diag)``."""
+    xx_half = kp.xx * 0.5
+    if kp.diag and kp.same:
+        # same & diag => xy' = xx' exactly
+        return KernelPatch(xx_half, xx_half, xx_half, kp.same, kp.diag)
+    xy = xy_map(kp.xy, kp.xx, kp.yy, kp.resolve_diag_mask(), kp.diag)
+    if kp.diag:
+        return KernelPatch(xy, xx_half, kp.yy * 0.5, kp.same, kp.diag)
     yy_half = xx_half if kp.same else kp.yy * 0.5
     return KernelPatch(xy, xx_half, yy_half, kp.same, kp.diag, kp.diag_mask)
+
+
+def relu_transform_reference(kp: KernelPatch) -> KernelPatch:
+    """The transform on a whole patch in plain torch
+    (``cnn_gp_tpu.ops.arccos._relu_xla``, which the JAX ``relu_transform``
+    dispatches to)."""
+    return _transform(kp, relu_xy_reference)
+
+
+def relu_transform(kp: KernelPatch) -> KernelPatch:
+    """The transform on a whole patch: ``relu_transform_reference`` for
+    CPU tensors; for CUDA tensors the xy' map is one kernel launch (or the
+    call raises), through an autograd Function where a gradient is
+    wanted."""
+    if kp.xy.device.type == "cpu":
+        return relu_transform_reference(kp)
+    return _transform(kp, _on_card)
+
+
+# kernel modes (csrc/arccos.cu)
+PAIR_FAST, PAIR_REFERENCE, DIAGONAL = 0, 1, 2
+
+
+def build() -> float:
+    """Build and load the kernel libraries (``cuda_lib.build``) and bind
+    this module's entry point.  Returns the seconds spent."""
+    global _lib
+    if _lib is not None:
+        return 0.0
+    seconds = cuda_lib.build()
+    lib = cuda_lib.library("arccos")
+    fn = lib.cnn_gp_relu
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.cnn_gp_relu_error_string.argtypes = [ctypes.c_int]
+    lib.cnn_gp_relu_error_string.restype = ctypes.c_char_p
+    _lib = types.SimpleNamespace(
+        cnn_gp_relu=fn,
+        error_string=lambda code: lib.cnn_gp_relu_error_string(
+            code).decode())
+    return seconds
+
+
+def _forms():
+    """The settings the kernel and its plain version read, as they stand:
+    (mode of a pair launch, acosf instead of the polynomial, the settings
+    for a backward pass to restore)."""
+    from .. import settings
+    saved = dict(relu_impl=settings.relu_impl, acos_impl=settings.acos_impl,
+                 grad_safe=settings.grad_safe)
+    mode = PAIR_FAST if settings.relu_impl == "fast" else PAIR_REFERENCE
+    return mode, int(settings.acos_impl != "poly"), saved
+
+
+def _on_card(xy: torch.Tensor, xx: torch.Tensor, yy: torch.Tensor,
+             mask: Optional[torch.Tensor], diag: bool) -> torch.Tensor:
+    """The CUDA route: launch the kernel or raise."""
+    if xy.device.type != "cuda":
+        raise ValueError(f"the ReLU kernel runs on cuda tensors, not on "
+                         f"{xy.device}")
+    build()
+    return _route(xy, xx, yy, mask, diag,
+                  torch.cuda.current_stream(xy.device).cuda_stream)
+
+
+def _route(xy: torch.Tensor, xx: torch.Tensor, yy: torch.Tensor,
+           mask: Optional[torch.Tensor], diag: bool, stream) -> torch.Tensor:
+    """The launch, through ``_ReluXY`` where a gradient is wanted."""
+    mode, exact, saved = _forms()
+    mode = DIAGONAL if diag else mode
+    if torch.is_grad_enabled() and (xy.requires_grad or xx.requires_grad
+                                    or yy.requires_grad):
+        return _ReluXY.apply(mode, exact, saved, mask, stream, xy, xx, yy)
+    return _launch(xy, xx, yy, mask, mode, exact, stream)
+
+
+class _ReluXY(torch.autograd.Function):
+    """The kernel as the forward; the backward re-runs
+    ``relu_xy_reference`` on the saved inputs, under the settings of the
+    forward, and returns its gradients, the same as plain autograd's.  (A
+    hand-written backward kernel is ROADMAP Queue 2 item 1, the tile
+    VJP.)"""
+
+    @staticmethod
+    def forward(ctx, mode, exact, saved, mask, stream, xy, xx, yy):
+        ctx.settings = saved
+        ctx.diag = mode == DIAGONAL
+        ctx.save_for_backward(mask, xy, xx, yy)
+        return _launch(xy, xx, yy, mask, mode, exact, stream)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from .. import settings
+        mask, *inputs = ctx.saved_tensors
+        needs = ctx.needs_input_grad[5:]
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(inputs, needs)]
+        with settings.override(**ctx.settings), torch.enable_grad():
+            out = relu_xy_reference(*inputs, mask, ctx.diag)
+        got = iter(torch.autograd.grad(
+            out, [t for t, need in zip(inputs, needs) if need], grad,
+            allow_unused=True))
+        return (None,) * 5 + tuple(next(got) if need else None
+                                   for need in needs)
+
+
+def _contiguous(t: torch.Tensor) -> torch.Tensor:
+    global copies
+    if t.is_contiguous():
+        return t
+    copies += 1
+    return t.contiguous()
+
+
+def _launch(xy: torch.Tensor, xx: torch.Tensor, yy: torch.Tensor,
+            mask: Optional[torch.Tensor], mode: int, exact: int,
+            stream) -> torch.Tensor:
+    """One kernel launch on ``stream``; returns the new xy' map."""
+    global launches
+    for name, t in (("xy", xy), ("xx", xx), ("yy", yy)):
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        if t.device != xy.device:
+            raise ValueError(f"{name} on {t.device}, xy on {xy.device}")
+    if mode == DIAGONAL:
+        if not (xy.ndim == 3 and xx.shape == xy.shape == yy.shape):
+            raise ValueError(f"diagonal mode takes xy, xx, yy of one [N, W, "
+                             f"H] shape, got {tuple(xy.shape)}, "
+                             f"{tuple(xx.shape)}, {tuple(yy.shape)}")
+        if mask is not None:
+            raise ValueError("diagonal mode takes no mask")
+        b1, b2 = xy.shape[0], 1
+    else:
+        b1, b2 = xy.shape[:2] if xy.ndim == 4 else (0, 0)
+        if not (xy.ndim == 4 and xx.shape == (b1,) + xy.shape[2:]
+                and yy.shape == (b2,) + xy.shape[2:]):
+            raise ValueError(f"pair mode takes xy [Nx, Ny, W, H], xx [Nx, W,"
+                             f" H], yy [Ny, W, H], got {tuple(xy.shape)}, "
+                             f"{tuple(xx.shape)}, {tuple(yy.shape)}")
+        if mask is not None and (mask.dtype != torch.bool
+                                 or mask.shape != (b1, b2)
+                                 or mask.device != xy.device):
+            raise ValueError(f"mask must be bool [{b1}, {b2}] on "
+                             f"{xy.device}, got {mask.dtype} "
+                             f"{tuple(mask.shape)} on {mask.device}")
+    xy, xx, yy = _contiguous(xy), _contiguous(xx), _contiguous(yy)
+    if mask is not None:
+        mask = _contiguous(mask)
+    out = torch.empty(xy.shape, dtype=torch.float32, device=xy.device)
+    s = xy.shape[-2] * xy.shape[-1]
+    err = _lib.cnn_gp_relu(
+        xy.data_ptr(), xx.data_ptr(), yy.data_ptr(),
+        None if mask is None else mask.data_ptr(), out.data_ptr(), b1, b2,
+        s, mode, exact, xy.device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"ReLU kernel launch failed: cuda error {err} "
+                           f"({_lib.error_string(err)})")
+    launches += 1
+    return out

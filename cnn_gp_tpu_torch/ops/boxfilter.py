@@ -2,9 +2,19 @@
 
 PyTorch counterpart of ``cnn_gp_tpu/ops/boxfilter.py``.  A conv with a
 constant ``var_weight / k**2`` kernel is a scaled windowed sum, so no
-weight tensor is built.  ``box_filter_2d`` is the separable shift-sum of
-``cnn_gp_tpu/ops/boxfilter.py::_shift_sum_1d``: per axis, zero padding
-``(lo, hi)`` and then ``k`` strided slices added together.
+weight tensor is built.  The plain version, ``box_filter_2d_reference``,
+is the separable shift-sum of ``cnn_gp_tpu/ops/boxfilter.py::_shift_sum_1d``:
+per axis, zero padding ``(lo, hi)`` and then ``k`` strided slices added
+together.  ``conv_maps_reference`` applies it, then the scale and the
+bias, to the fields of a ``Conv2d``.
+
+On the card the same functions are one hand-written CUDA kernel,
+``csrc/boxfilter.cu``, bit-equal to the plain version: ``conv_maps`` runs
+all of a ``Conv2d``'s fields (the xy pair map and the xx / yy side maps)
+in one launch, ``box_filter_2d`` one map without the scale and bias.
+Both run the plain version for CPU tensors and launch the kernel for CUDA
+tensors, or raise.  ``launches`` counts kernel launches; ``copies`` counts
+inputs that were not contiguous and were copied before a launch.
 
 It deliberately avoids ``F.conv2d``: cuDNN runs float32 convolutions in
 TF32 by default, which keeps about three decimal digits.
@@ -12,14 +22,26 @@ TF32 by default, which keeps about three decimal digits.
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+import ctypes
+import struct
+import types
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["same_padding", "resolve_padding", "box_filter_2d", "out_size"]
+from . import cuda_lib
+
+__all__ = ["same_padding", "resolve_padding", "out_size", "box_filter_2d",
+           "box_filter_2d_reference", "conv_maps", "conv_maps_reference",
+           "build", "launches", "copies"]
 
 PadT = Tuple[int, int]
+Operand = Union[None, float, torch.Tensor]
+
+launches = 0   # box-filter kernel launches
+copies = 0     # inputs copied to make them contiguous before a launch
+_lib = None
 
 
 def same_padding(kernel_size: int, dilation: int = 1) -> PadT:
@@ -52,6 +74,24 @@ def out_size(length: int, kernel_size: int, stride: int, pad: PadT,
     return (length + pad[0] + pad[1] - eff) // stride + 1
 
 
+class Geometry(NamedTuple):
+    """One box filter: window, stride, (lo, hi) padding, dilation."""
+    kernel_size: int
+    stride: int
+    pad: PadT
+    dilation: int
+
+    @classmethod
+    def of(cls, kernel_size, stride=1, padding=0, dilation=1) -> "Geometry":
+        return cls(int(kernel_size), int(stride),
+                   resolve_padding(padding, kernel_size, dilation),
+                   int(dilation))
+
+    def out_shape(self, w: int, h: int) -> Tuple[int, int]:
+        k, s, p, d = self
+        return out_size(w, k, s, p, d), out_size(h, k, s, p, d)
+
+
 def _shift_sum_1d(x: torch.Tensor, dim: int, k: int, stride: int,
                   pad: PadT, dilation: int) -> torch.Tensor:
     """``out[o] = sum_a xp[o*stride + a*dilation]`` along ``dim`` over the
@@ -71,10 +111,219 @@ def _shift_sum_1d(x: torch.Tensor, dim: int, k: int, stride: int,
     return total
 
 
-def box_filter_2d(x: torch.Tensor, kernel_size: int, stride: int = 1,
-                  padding: Union[str, int, PadT] = 0,
-                  dilation: int = 1) -> torch.Tensor:
-    """Windowed sum over the trailing two dims of ``x`` ([..., W, H])."""
+def box_filter_2d_reference(x: torch.Tensor, kernel_size: int,
+                            stride: int = 1,
+                            padding: Union[str, int, PadT] = 0,
+                            dilation: int = 1) -> torch.Tensor:
+    """Windowed sum over the trailing two dims of ``x`` ([..., W, H]) in
+    plain torch: the W slices, then the H slices, each added in order."""
     pad = resolve_padding(padding, kernel_size, dilation)
     y = _shift_sum_1d(x, x.ndim - 2, kernel_size, stride, pad, dilation)
     return _shift_sum_1d(y, x.ndim - 1, kernel_size, stride, pad, dilation)
+
+
+def _plain(geom: Geometry, maps: Sequence[torch.Tensor], scale: Operand,
+           bias: Operand) -> List[torch.Tensor]:
+    out = [box_filter_2d_reference(a, *geom) for a in maps]
+    if scale is None:
+        return out
+    return [o * scale + bias for o in out]
+
+
+def conv_maps_reference(maps: Sequence[torch.Tensor], kernel_size: int,
+                        stride: int, padding: Union[str, int, PadT],
+                        dilation: int, scale: Union[float, torch.Tensor],
+                        bias: Union[float, torch.Tensor]
+                        ) -> List[torch.Tensor]:
+    """``box_filter_2d_reference(a) * scale + bias`` for each map ``a``:
+    the plain ``Conv2d`` covariance map."""
+    return _plain(Geometry.of(kernel_size, stride, padding, dilation), maps,
+                  scale, bias)
+
+
+def box_filter_2d(x: torch.Tensor, kernel_size: int, stride: int = 1,
+                  padding: Union[str, int, PadT] = 0,
+                  dilation: int = 1) -> torch.Tensor:
+    """Windowed sum over the trailing two dims of ``x`` ([..., W, H]):
+    the plain version for a CPU tensor, one kernel launch for a CUDA
+    tensor (or the call raises)."""
+    if x.device.type == "cpu":
+        return box_filter_2d_reference(x, kernel_size, stride, padding,
+                                       dilation)
+    return _on_card(Geometry.of(kernel_size, stride, padding, dilation),
+                    [x], None, None)[0]
+
+
+def conv_maps(maps: Sequence[torch.Tensor], kernel_size: int, stride: int,
+              padding: Union[str, int, PadT], dilation: int,
+              scale: Union[float, torch.Tensor],
+              bias: Union[float, torch.Tensor]) -> List[torch.Tensor]:
+    """The ``Conv2d`` covariance map of one to three fields ([..., W, H]
+    float32 each, on one device): ``box(a) * scale + bias``.  ``scale`` is
+    ``var_weight / k**2`` as the layer computes it, a float or (for a
+    learnable leaf) a float32 tensor; ``bias`` likewise.  CPU tensors run
+    ``conv_maps_reference``; CUDA tensors launch the kernel once for all
+    the fields (or the call raises).  Under autograd, the launch is the
+    forward of a ``torch.autograd.Function`` whose backward differentiates
+    the plain version."""
+    if maps[0].device.type == "cpu":
+        return conv_maps_reference(maps, kernel_size, stride, padding,
+                                   dilation, scale, bias)
+    return _on_card(Geometry.of(kernel_size, stride, padding, dilation),
+                    list(maps), scale, bias)
+
+
+def build() -> float:
+    """Build and load the kernel libraries (``cuda_lib.build``) and bind
+    this module's entry point.  Returns the seconds spent."""
+    global _lib
+    if _lib is not None:
+        return 0.0
+    seconds = cuda_lib.build()
+    lib = cuda_lib.library("boxfilter")
+    fn = lib.cnn_gp_box_filter
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong] * 3
+                   + [ctypes.c_int] * 9 + [ctypes.c_float] * 2
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.cnn_gp_box_filter_error_string.argtypes = [ctypes.c_int]
+    lib.cnn_gp_box_filter_error_string.restype = ctypes.c_char_p
+    _lib = types.SimpleNamespace(
+        cnn_gp_box_filter=fn,
+        error_string=lambda code: lib.cnn_gp_box_filter_error_string(
+            code).decode())
+    return seconds
+
+
+def _requires_grad(t) -> bool:
+    return isinstance(t, torch.Tensor) and t.requires_grad
+
+
+def _on_card(geom: Geometry, maps: List[torch.Tensor], scale: Operand,
+             bias: Operand) -> List[torch.Tensor]:
+    """The CUDA route: launch the kernel or raise."""
+    if maps[0].device.type != "cuda":
+        raise ValueError(f"the box-filter kernel runs on cuda tensors, not "
+                         f"on {maps[0].device}")
+    build()
+    return _route(geom, maps, scale, bias,
+                  torch.cuda.current_stream(maps[0].device).cuda_stream)
+
+
+def _route(geom: Geometry, maps: List[torch.Tensor], scale: Operand,
+           bias: Operand, stream) -> List[torch.Tensor]:
+    """The launch, through ``_ConvMaps`` where a gradient is wanted."""
+    if torch.is_grad_enabled() and any(
+            _requires_grad(t) for t in (scale, bias, *maps)):
+        return list(_ConvMaps.apply(geom, stream, scale, bias, *maps))
+    return _launch(geom, maps, scale, bias, stream)
+
+
+class _ConvMaps(torch.autograd.Function):
+    """The kernel as the forward; the backward re-runs the plain version
+    on the saved inputs under ``enable_grad`` and returns its gradients,
+    the same as plain autograd's.  (A hand-written backward kernel is
+    ROADMAP Queue 2 item 1, the tile VJP.)"""
+
+    @staticmethod
+    def forward(ctx, geom, stream, scale, bias, *maps):
+        ctx.geom = geom
+        ctx.operands = [None if isinstance(t, torch.Tensor) else t
+                        for t in (scale, bias)]
+        ctx.save_for_backward(*[t if isinstance(t, torch.Tensor) else None
+                                for t in (scale, bias)], *maps)
+        return tuple(_launch(geom, list(maps), scale, bias, stream))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        saved = ctx.saved_tensors
+        needs = ctx.needs_input_grad[2:]
+        inputs = [ctx.operands[i] if saved[i] is None else saved[i]
+                  for i in range(2)] + list(saved[2:])
+        inputs = [t.detach().requires_grad_(need)
+                  if isinstance(t, torch.Tensor) else t
+                  for t, need in zip(inputs, needs)]
+        with torch.enable_grad():
+            outs = _plain(ctx.geom, inputs[2:], inputs[0], inputs[1])
+        pairs = [(o, g) for o, g in zip(outs, grads) if o.requires_grad]
+        wrt = [t for t, need in zip(inputs, needs) if need]
+        got = iter(torch.autograd.grad([o for o, _ in pairs],
+                                       wrt, [g for _, g in pairs],
+                                       allow_unused=True))
+        return (None, None) + tuple(next(got) if need else None
+                                    for need in needs)
+
+
+def _f32(v: float) -> float:
+    """``v`` rounded to float32, as torch rounds a Python scalar operand
+    of a float32 tensor."""
+    return struct.unpack("f", struct.pack("f", float(v)))[0]
+
+
+def _operand(v: Operand, device: torch.device
+             ) -> Tuple[float, Optional[int]]:
+    """(value, card pointer) of the scale or the bias: a float rounded to
+    float32; a float32 0-d tensor read on the host if it lies there, else
+    passed by its pointer (no synchronisation)."""
+    if v is None:
+        return 0.0, None
+    if not isinstance(v, torch.Tensor):
+        return _f32(v), None
+    if v.dtype != torch.float32 or v.numel() != 1:
+        raise ValueError(f"scale and bias must be floats or float32 "
+                         f"scalars, got {v.dtype} {tuple(v.shape)}")
+    if v.device.type == "cpu":
+        return float(v), None
+    if v.device != device:
+        raise ValueError(f"scale or bias on {v.device}, maps on {device}")
+    return 0.0, v.data_ptr()
+
+
+def _contiguous(t: torch.Tensor) -> torch.Tensor:
+    global copies
+    if t.is_contiguous():
+        return t
+    copies += 1
+    return t.contiguous()
+
+
+def _launch(geom: Geometry, maps: List[torch.Tensor], scale: Operand,
+            bias: Operand, stream) -> List[torch.Tensor]:
+    """One kernel launch over every map (three at most) on ``stream``;
+    returns the new output maps."""
+    global launches
+    if not 1 <= len(maps) <= 3:
+        raise ValueError(f"one to three maps per launch, got {len(maps)}")
+    device = maps[0].device
+    w, h = maps[0].shape[-2:]
+    for a in maps:
+        if a.dtype != torch.float32 or a.ndim < 2:
+            raise ValueError(f"maps must be float32 [..., W, H], got "
+                             f"{a.dtype} {tuple(a.shape)}")
+        if a.device != device or a.shape[-2:] != (w, h):
+            raise ValueError(f"maps differ: {a.device} {tuple(a.shape)} "
+                             f"against {device} [..., {w}, {h}]")
+    wo, ho = geom.out_shape(w, h)
+    if wo < 1 or ho < 1:
+        raise ValueError(f"{geom} leaves no output of a {w}x{h} map")
+    maps = [_contiguous(a) for a in maps]
+    outs = [torch.empty(a.shape[:-2] + (wo, ho), dtype=torch.float32,
+                        device=device) for a in maps]
+    slots = []
+    for f in range(3):
+        if f < len(maps):
+            slots += [maps[f].data_ptr(), outs[f].data_ptr(),
+                      maps[f].numel() // (w * h)]
+        else:
+            slots += [None, None, 0]
+    scale_v, scale_p = _operand(scale, device)
+    bias_v, bias_p = _operand(bias, device)
+    k, s, (lo, _), d = geom
+    err = _lib.cnn_gp_box_filter(
+        *slots, w, h, wo, ho, k, s, lo, d, int(scale is not None), scale_v,
+        bias_v, scale_p, bias_p, device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"box-filter kernel launch failed: cuda error "
+                           f"{err} ({_lib.error_string(err)})")
+    launches += 1
+    return outs

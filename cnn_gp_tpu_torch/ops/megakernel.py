@@ -8,8 +8,8 @@ with every intermediate kept on chip.  Two hand-written CUDA kernels do
 it: the pre-pass (``csrc/diag_maps.cu``) computes each image's L pre-ReLU
 diagonal maps once, and the pair kernel (``csrc/megakernel.cu``) runs the
 per-pair recursion against them, one warp per pair.  Both are built with
-``nvcc`` for ``sm_90a`` at first use into ``_build/`` (one ``nvcc`` per
-source, started together) and bound with ``ctypes``.
+``nvcc`` for ``sm_90a`` at first use into ``_build/`` (``cuda_lib``: one
+``nvcc`` per source, started together) and bound with ``ctypes``.
 
 ``gram_tile`` launches both for CUDA tensors (or raises) and runs
 ``gram_tile_reference``, the same network in plain torch, for CPU tensors;
@@ -24,38 +24,26 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import math
-import os
-import re
-import shutil
 import struct
-import subprocess
 import time
 import types
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
+from . import cuda_lib
 from .arccos import F32_TINY, acos_f32
-from .boxfilter import box_filter_2d
+from .boxfilter import box_filter_2d_reference
+from .cuda_lib import ptxas_report  # noqa: F401  (re-exported)
 
 __all__ = ["MegaSpec", "match", "gram_tile", "gram_tile_reference",
            "diag_maps", "diag_maps_reference", "diag_readout", "build",
            "ptxas_report", "launches", "prepass_launches"]
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCES = (os.path.join(_PKG, "csrc", "megakernel.cu"),
-           os.path.join(_PKG, "csrc", "diag_maps.cu"))
-BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
-
 launches = 0          # pair-kernel launches by gram_tile
 prepass_launches = 0  # pre-pass launches by gram_tile and diag_maps
 _lib = None
-build_log = ""        # nvcc's output (ptxas register/shared-memory report)
 
 
 def _value(v) -> float:
@@ -143,9 +131,9 @@ def _recursion(spec: MegaSpec, x: torch.Tensor, z: torch.Tensor,
     k = spec.kernel_size
     pad = (k // 2, k // 2)
     for scale, vb in spec.layer_scales():
-        xy = box_filter_2d(xy, k, 1, pad) * scale + vb
-        xx = box_filter_2d(xx, k, 1, pad) * scale + vb
-        yy = box_filter_2d(yy, k, 1, pad) * scale + vb
+        xy = box_filter_2d_reference(xy, k, 1, pad) * scale + vb
+        xx = box_filter_2d_reference(xx, k, 1, pad) * scale + vb
+        yy = box_filter_2d_reference(yy, k, 1, pad) * scale + vb
         if record is not None:
             record.append((xx, yy))
         xx_yy = xx * yy + F32_TINY
@@ -188,65 +176,22 @@ def diag_maps_reference(spec: MegaSpec, x: torch.Tensor) -> torch.Tensor:
     pad = (k // 2, k // 2)
     maps = []
     for scale, vb in spec.layer_scales():
-        d = box_filter_2d(h, k, 1, pad) * scale + vb
+        d = box_filter_2d_reference(h, k, 1, pad) * scale + vb
         maps.append(d)
         h = d * 0.5
     return torch.stack(maps)
 
 
-def _nvcc() -> str:
-    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                        "bin", "nvcc")
-    if os.path.exists(cand):
-        return cand
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME): the megakernel "
-                           "is built from csrc/*.cu at first use")
-    return found
-
-
 def build() -> float:
-    """Compile (or reuse from ``_build/``) one shared library per source,
-    one ``nvcc`` each, all started together, and load them if they are
-    not loaded yet.  Returns the seconds spent (0.0 when nothing was
-    done)."""
-    global _lib, build_log
+    """Build and load the kernel libraries (``cuda_lib.build``: every
+    source under ``csrc/``, one ``nvcc`` each, started together) and bind
+    this module's two entry points.  Returns the seconds spent (0.0 when
+    nothing was done)."""
+    global _lib
     if _lib is not None:
         return 0.0
     t0 = time.perf_counter()
-    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
-        with open(src, "rb") as f:
-            digest.update(f.read())
-    tag = digest.hexdigest()[:16]
-    paths = [os.path.join(BUILD_DIR, f"lib{os.path.basename(src)[:-3]}-"
-                                     f"{tag}.so") for src in SOURCES]
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    running = []
-    for src, path in zip(SOURCES, paths):
-        if not os.path.exists(path):
-            tmp = f"{path}.{os.getpid()}.tmp"
-            with open(f"{tmp}.log", "w") as log:
-                running.append((src, path, tmp, subprocess.Popen(
-                    [_nvcc(), *NVCC_FLAGS, "-o", tmp, src], stdout=log,
-                    stderr=subprocess.STDOUT)))
-    failed = []
-    for src, path, tmp, proc in running:
-        code = proc.wait()
-        if code != 0:
-            with open(f"{tmp}.log") as f:
-                failed.append(f"nvcc failed on {src}:\n{f.read()}")
-            continue
-        os.replace(f"{tmp}.log", f"{path}.log")
-        os.replace(tmp, path)
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    logs = []
-    for path in paths:
-        with open(f"{path}.log") as f:
-            logs.append(f.read())
-    pair, pre = (ctypes.CDLL(p) for p in paths)
+    pair, pre = cuda_lib.library("megakernel"), cuda_lib.library("diag_maps")
     pair.cnn_gp_pair_tile.argtypes = (
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
@@ -262,45 +207,7 @@ def build() -> float:
         cnn_gp_diag_maps=pre.cnn_gp_diag_maps,
         error_string=lambda code: pair.cnn_gp_megakernel_error_string(
             code).decode())
-    build_log = "".join(logs)
     return time.perf_counter() - t0
-
-
-_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
-_REGS = re.compile(r"Used (\d+) registers")
-_SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
-_TEMPLATE = re.compile(r"ILi(\d+)ELi(\d+)E")
-
-
-def ptxas_report(log: str) -> List[dict]:
-    """One dict per kernel in ptxas's ``-v`` output: ``kernel`` (a
-    readable name: ``pair_kernel<28,7>`` for the register kernel of 28x28
-    maps and k=7), ``registers``, ``spill_stores``, ``spill_loads``."""
-    out: List[dict] = []
-    for line in log.splitlines():
-        m = _ENTRY.search(line)
-        if m:
-            name = m.group(1)
-            for base in ("pair_kernel_generic", "pair_kernel",
-                         "diag_maps_kernel"):
-                if base in name:
-                    t = _TEMPLATE.search(name)
-                    name = base + (f"<{t.group(1)},{t.group(2)}>"
-                                   if t and base == "pair_kernel" else "")
-                    break
-            out.append({"kernel": name, "registers": None,
-                        "spill_stores": None, "spill_loads": None})
-            continue
-        if not out:
-            continue
-        m = _SPILLS.search(line)
-        if m:
-            out[-1]["spill_stores"] = int(m.group(1))
-            out[-1]["spill_loads"] = int(m.group(2))
-        m = _REGS.search(line)
-        if m:
-            out[-1]["registers"] = int(m.group(1))
-    return out
 
 
 @functools.lru_cache(maxsize=16)

@@ -51,11 +51,11 @@ def _conv_ops(layer, fields, w, h):
 
 def tile_ops(model, b: int, shape) -> float:
     """FP32 operations of one symmetric [b, b] tile of ``model`` on the
-    plain path: the channel-mean moments (2 C per pair and pixel), then
-    per layer over the b^2 pair maps and the 2 b variance maps: box sums,
-    scale and bias for a Conv2d; the arccos update for a ReLU (halving
-    for the variance maps); one add per extra branch of a Sum (and one
-    multiply per branch of a Mixture)."""
+    layer-by-layer path: the channel-mean moments (2 C per pair and
+    pixel), then per layer over the b^2 pair maps and the 2 b variance
+    maps: box sums, scale and bias for a Conv2d; the arccos update for a
+    ReLU (halving for the variance maps); one add per extra branch of a
+    Sum (and one multiply per branch of a Mixture)."""
     c, w, h = shape
     pairs, fields = b * b, b * b + 2 * b
 

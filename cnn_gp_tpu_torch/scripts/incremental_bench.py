@@ -14,8 +14,8 @@ and peak card memory of each step, then one JSON line.
     python -m cnn_gp_tpu_torch.scripts.incremental_bench \\
         --config=mnist_paper_convnet_gp --n=16384 --m=2048 --batches=2
 
-The default ``--config=mnist_as_tf`` is the ResNet-32 on the plain path:
-at 16k a long run on the card.  Every clock read follows a device
+The default ``--config=mnist_as_tf`` is the ResNet-32 on the layer
+kernels: at 16k a long run on the card.  Every clock read follows a device
 synchronisation.
 """
 

@@ -392,11 +392,16 @@ def test_diag_maps_refuses_other_tensors():
 
 
 def test_build_hashes_every_source():
-    """Every csrc/*.cu file is built (and keys the build hash)."""
+    """Every csrc/*.cu file is built (and keys the build hash) by the
+    build that the megakernel's ``build`` runs."""
     import glob
     import os
-    csrc = os.path.join(os.path.dirname(tmk.SOURCES[0]), "*.cu")
-    assert sorted(glob.glob(csrc)) == sorted(tmk.SOURCES)
+    from cnn_gp_tpu_torch.ops import cuda_lib
+    sources = list(cuda_lib.SOURCES.values())
+    csrc = os.path.join(os.path.dirname(sources[0]), "*.cu")
+    assert sorted(glob.glob(csrc)) == sorted(sources)
+    assert cuda_lib.HEADERS == sorted(glob.glob(csrc + "h"))
+    assert tmk.ptxas_report is cuda_lib.ptxas_report
 
 
 PTXAS_LOG = """\
