@@ -12,14 +12,14 @@
 // Pair mode: xy [b1, b2, S], xx [b1, S], yy [b2, S], mask [b1, b2] or
 // none.  Diagonal mode: xy, xx, yy all [b, S], the reference form
 // elementwise, no mask.  (xx' = xx / 2 and yy' stay torch multiplies on
-// the small side maps.)
+// the small side maps.)  A ReLU whose every consumer is a Conv2d does not
+// come here: it runs in the box filter's prologue (csrc/boxfilter.cu),
+// on the same device math.
 //
 // Arithmetic: that of the plain version
 // (cnn_gp_tpu_torch/ops/arccos.py::relu_xy_reference) operation for
-// operation, each step rounded on its own (__fmul_rn / __fadd_rn /
-// __fsqrt_rn: no FMA contraction), rsqrtf and acosf as torch's CUDA
-// rsqrt and acos call them, and the constants rounded from the doubles the
-// plain version's Python floats hold.  The row and column factors
+// operation, in csrc/arccos.cuh (shared with the box filter's prologue).
+// The row and column factors
 // (rsqrt and sqrt of xx + tiny and yy + tiny) are recomputed per element
 // (no pre-step launch): four special-function calls against a read of
 // 4 bytes.  The factor (r_xx[i] * r_yy[j]) is formed before it multiplies
@@ -38,96 +38,21 @@
 // two multiply-high divisions (csrc/fast_div.cuh), not two 20-instruction
 // integer divisions.
 
-#include <cfloat>
 #include <climits>
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "arccos.cuh"
 #include "fast_div.cuh"
 
 namespace {
 
+using namespace cnn_gp;
+
 constexpr int kThreads = 256;
-// The plain version's Python floats, rounded to float32 as torch rounds a
-// scalar operand (from the double, not from the decimal).
-constexpr double kPiD = 3.14159265358979323846;
-constexpr float kPi = static_cast<float>(kPiD);
-constexpr float kHalfPi = static_cast<float>(kPiD / 2.0);
-constexpr float kHalfInvPi = static_cast<float>(0.5 / kPiD);
-constexpr float kTiny = FLT_MIN;            // F32_TINY
-constexpr float kP0 = static_cast<float>(4.2163199048e-2);
-constexpr float kP1 = static_cast<float>(2.4181311049e-2);
-constexpr float kP2 = static_cast<float>(4.5470025998e-2);
-constexpr float kP3 = static_cast<float>(7.4953002686e-2);
-constexpr float kP4 = static_cast<float>(1.6666752422e-1);
 
 enum Mode { kPairFast = 0, kPairReference = 1, kDiagonal = 2 };
-
-// NaN-propagating max and min, like torch.clamp (fmaxf / fminf would turn
-// a NaN into the bound).
-__device__ __forceinline__ float max_nan(float a, float b) {
-  float r;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-
-__device__ __forceinline__ float min_nan(float a, float b) {
-  float r;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-
-__device__ __forceinline__ float clip_unit(float v) {
-  return min_nan(max_nan(v, -1.0f), 1.0f);
-}
-
-// float32 arccos from sqrt and multiply-adds (the Cephes asinf
-// polynomial), cnn_gp_tpu_torch/ops/arccos.py::acos_f32 step by step.
-__device__ __forceinline__ float acos_poly(float x) {
-  const float a = fabsf(x);
-  const bool big = a > 0.5f;
-  const float z_big = __fmul_rn(0.5f, __fsub_rn(1.0f, a));
-  const float z = big ? z_big : __fmul_rn(a, a);
-  const float t = big ? __fsqrt_rn(z_big) : a;
-  float p = __fadd_rn(__fmul_rn(kP0, z), kP1);
-  p = __fadd_rn(__fmul_rn(p, z), kP2);
-  p = __fadd_rn(__fmul_rn(p, z), kP3);
-  p = __fadd_rn(__fmul_rn(p, z), kP4);
-  const float asin_core = __fadd_rn(t, __fmul_rn(__fmul_rn(t, z), p));
-  const float acos_abs = big ? __fmul_rn(2.0f, asin_core)
-                             : __fsub_rn(kHalfPi, asin_core);
-  return x < 0.0f ? __fsub_rn(kPi, acos_abs) : acos_abs;
-}
-
-__device__ __forceinline__ float acos_any(float x, int exact) {
-  return exact ? acosf(x) : acos_poly(x);
-}
-
-// _xy_update_factored: the hoisted row and column factors, recomputed here.
-__device__ __forceinline__ float relu_fast(float v, float cx, float cy,
-                                           int exact) {
-  const float ax = __fadd_rn(cx, kTiny), ay = __fadd_rn(cy, kTiny);
-  const float f = __fmul_rn(rsqrtf(ax), rsqrtf(ay));   // before xy
-  const float c = clip_unit(__fmul_rn(v, f));
-  const float s = __fmul_rn(
-      __fmul_rn(__fsqrt_rn(ax), __fsqrt_rn(ay)),
-      __fsqrt_rn(max_nan(__fsub_rn(1.0f, __fmul_rn(c, c)), 0.0f)));
-  const float pi_minus_t = acos_any(-c, exact);
-  return __fmul_rn(__fadd_rn(s, __fmul_rn(pi_minus_t, v)), kHalfInvPi);
-}
-
-// _xy_update: the reference's order of operations.
-__device__ __forceinline__ float relu_reference(float v, float cx, float cy,
-                                                int exact) {
-  const float xx_yy = __fadd_rn(__fmul_rn(cx, cy), kTiny);
-  const float c = clip_unit(__fmul_rn(v, rsqrtf(xx_yy)));
-  const float s = __fsqrt_rn(max_nan(__fsub_rn(xx_yy, __fmul_rn(v, v)),
-                                     0.0f));
-  const float t = acos_any(c, exact);
-  return __fmul_rn(__fadd_rn(s, __fmul_rn(__fsub_rn(kPi, t), v)),
-                   kHalfInvPi);
-}
 
 __global__ void __launch_bounds__(kThreads)
 relu_kernel(const float* __restrict__ xy, const float* __restrict__ xx,

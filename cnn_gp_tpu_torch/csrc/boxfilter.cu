@@ -1,204 +1,708 @@
-// The NNGP Conv2d covariance map, a scaled box filter, for Hopper (sm_90a).
+// The NNGP Conv2d covariance map, a scaled box filter, for Hopper
+// (sm_90a), with the ResNet layer fused around it: the arccos ReLU of its
+// input in a prologue, the residual branch's running total added in an
+// epilogue.
 //
 // Replaces work that the JAX package leaves to XLA (no Pallas kernel):
 // cnn_gp_tpu/ops/boxfilter.py::box_filter_2d (default "separable",
 // _reduce_window_1d; "shifts", _shift_sum_1d), called per field by
 // cnn_gp_tpu/kernels.py::Conv2d.propagate and followed there by
-// "* var_weight / k^2 + var_bias".  One launch takes up to three float32
-// maps of [P, W, H] planes (the xy pair map and the xx / yy side maps of
-// one Conv2d; two when yy is xx, a block of one set after its first ReLU,
-// whose yy' is then xx') and writes, for each plane,
-//     out[p, o, q] = (sum_{c<k} sum_{a<k} xp[p, o*s + a*d, q*s + c*d])
-//                    * scale + bias,
-// where xp is the plane zero-padded by (lo, hi) on each axis; with
-// affine == 0 it writes the windowed sum alone (box_filter_2d).
+// "* var_weight / k^2 + var_bias"; with the prologue also
+// cnn_gp_tpu/ops/arccos.py::_relu_xla, and with the epilogue the add of
+// cnn_gp_tpu/kernels.py::Sum.propagate, which XLA fuses into one program
+// with the convolutions.  One launch takes up to three float32 maps of
+// [P, W, H] planes (the xy pair map and the xx / yy side maps of one
+// Conv2d; two when yy is xx) and writes, for each plane,
+//     out[p, o, q] = skip[p, o, q]
+//                    + (sum_{c<k} sum_{a<k} xp[p, o*s + a*d, q*s + c*d])
+//                      * scale + bias,
+// where xp is the prologue's map of the plane zero-padded by (lo, hi) on
+// each axis: the plane itself, half of it (the side maps after a ReLU,
+// xx' = xx / 2), or the arccos ReLU of a pair map (xy' from xy and the
+// pre-ReLU side maps xx [bx, W, H], yy [bz, W, H], same-example pairs
+// taking xx / 2 through the mask [bx, bz]).  skip is absent without the
+// epilogue; with affine == 0 the launch writes the windowed sum alone
+// (box_filter_2d).
 //
-// Arithmetic: that of the plain version
-// (cnn_gp_tpu_torch/ops/boxfilter.py::conv_maps_reference) operation for
-// operation.  The plain version adds k strided slices along W (slice
-// a = 0, then a = 1, ...) into a [Wo, H] sum, then k strided slices of
-// that along H in the same order, then multiplies by the scale, then adds
-// the bias.  The kernel forms the same [Wo, H] sums in the same order (a
-// tap in the padding adds +0.0, as F.pad's zeros do), adds them along H
-// in order, and rounds every step on its own (__fadd_rn / __fmul_rn keep
-// nvcc from contracting into FMAs).  So the output is bit-equal to the
-// plain version on the card.  The scale is the float32 the plain version
-// multiplies by: var_weight / k^2 rounded from the Python float, or read
-// from the card when it is a learnable leaf.
+// Arithmetic: that of the plain chain
+// (cnn_gp_tpu_torch/ops/layer.py::conv_layer_reference: relu_transform_
+// reference, conv_maps_reference, then skip + out) operation for
+// operation.  The prologue runs the ReLU's device math of csrc/arccos.cuh,
+// the same instructions as the standalone ReLU kernel; the box sum adds
+// k strided slices along W (a = 0, 1, ...) into a [Wo, H] sum, then k
+// slices of that along H in the same order (a tap in the padding adds
+// +0.0, as F.pad's zeros do), multiplies by the scale, adds the bias and
+// then the skip (IEEE addition commutes: skip + conv has the bits of the
+// Sum's add); every step is rounded on its own (__fadd_rn / __fmul_rn
+// keep nvcc from contracting into FMAs).  So the output is bit-equal to
+// the plain chain on the card.  The scale is the float32 the plain
+// version multiplies by: var_weight / k^2 rounded from the Python float,
+// or read from the card when it is a learnable leaf.
 //
-// What bounds it: bytes.  A 200 x 200 tile of 28 x 28 maps with k = 3
-// reads its 125 MB xy map once and writes 125 MB (75 us at 3.35 TB/s);
-// its separable sums take 2(k - 1) + 2 operations per output element
-// (1.9e8, 3 us of FP32).  The design: a block stages a run of whole
-// planes (up to 8,192 floats of input and [Wo, H] sums, 32 KB of shared
-// memory; the planes of a map are contiguous, so the loads and the
-// stores of a block are one contiguous, coalesced range each), forms the
-// [Wo, H] sums of the W pass in shared memory, then the H pass writes the
-// outputs; one thread per element in each pass, neighbouring threads on
-// the contiguous axis, its indices from multiply-high divisions
-// (csrc/fast_div.cuh).  A plane too large for 48 KB of staging (maps
-// above about 78 x 78, which no config uses) takes the unstaged kernel:
-// one thread per output element, recomputing the W sums of its k columns
-// from global memory, the same bits.  (The fused ResNet layer, the ReLU
-// in the prologue and the Sum add in the epilogue, is later work.)
+// What bounds it: bytes, or for the ReLU prologue the issue of its
+// unfused arithmetic.  A 200 x 200 tile of 28 x 28 maps with k = 3 reads
+// its 125 MB xy map once, the 125 MB skip once and writes 125 MB (112 us
+// at 3.35 TB/s); the box sum is ~6 operations per element and a uniform
+// window, far below the ridge, so tensor cores have nothing to do here.
+// The ReLU's ~45 rounded FP32 operations and four to six special-function
+// sequences per element (~100 instructions with the IEEE square roots)
+// issue in about as long as the bytes take.  The design:
+//   - a persistent grid (as many blocks as fit on the SMs); a block walks
+//     its share of runs of consecutive planes of the flat plane axis,
+//     each run contiguous in memory;
+//   - a ring of kStages stages in dynamic shared memory: one thread
+//     issues each run's input planes and skip planes as one bulk
+//     asynchronous copy each (cp.async.bulk, 1-D TMA, completion on an
+//     mbarrier) kStages - 1 runs ahead, while the block computes the
+//     current run; a run's tail that is not a multiple of 16 bytes, and
+//     a run at an address that is not 16-byte aligned (a view), load with
+//     scalar loads in the same kernel;
+//   - the prologue in place on the staged planes, each thread on a fixed
+//     set of pixels across the run's planes, so in the "fast" form a
+//     row factor (rsqrt and sqrt of xx + tiny) is computed once per
+//     distinct row plane of the block's runs and kept in registers; xx
+//     and yy are read through L1 / L2 (0.6 MB at 200 x 200, inside the
+//     50 MB L2), a thread's loads of a plane issued together before its
+//     arithmetic;
+//   - the W pass into a [Wo, H] buffer, the H pass, the scale, the bias
+//     and the skip, stored coalesced;
+//   - the geometries of the ResNet configs (28/14/7 and 32/16/8 maps,
+//     k 1, 3, 4, 7, 8, stride 1 and 2, "same" or 0 padding) as template
+//     parameters, so the index arithmetic is by constants and the
+//     "fast" ReLU's row factors are kept in registers; every other
+//     geometry takes the same kernel with run-time indices by
+//     multiply-high divisions (csrc/fast_div.cuh).  On an H100 each
+//     fixed geometry's launch takes 0.55-0.82 of the run-time kernel's
+//     (chip_smoke.py, fixed_vs_runtime).
+// A plane too large to stage kStages deep in kMaxStagedBytes (maps above
+// about 80 x 80, 60 x 60 with a skip; no config uses one) takes the
+// unstaged kernel: one
+// thread per output element, its prologue applied to each tap it reads
+// from global memory, the same bits.
 
 #include <climits>
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "arccos.cuh"
 #include "fast_div.cuh"
 
 namespace {
 
+using namespace cnn_gp;
+
 constexpr int kThreads = 256;
+constexpr int kStages = 3;               // runs in flight per block
+constexpr int kRunFloats = 2048;         // input floats a run aims at
+constexpr int kMaxStagedBytes = 100 * 1024;
+constexpr int kMinBlocksPerSM = 3;
 
-constexpr int kStageFloats = 8192;     // staged input + W sums per block
-constexpr int kMaxPlanesPerBlock = 64;
-constexpr int kMaxStaticSmem = 48 * 1024;
+// What the prologue does to a map's planes before the filter.
+enum Prologue { kAsIs = 0, kHalf = 1, kRelu = 2 };
 
-// Up to three maps: x0 -> y0 holds p0 planes, x1 -> y1 p1, x2 -> y2 p2.
-struct Maps {
-  const float* x0;
-  const float* x1;
-  const float* x2;
-  float* y0;
-  float* y1;
-  float* y2;
-  unsigned p0;
-  unsigned p1;
-  unsigned p2;
+struct Map {
+  const float* x;      // [planes, W, H]
+  const float* skip;   // [planes, Wo, Ho] or null
+  float* y;            // [planes, Wo, Ho]
+  unsigned planes;
+  unsigned runs;       // ceil(planes / ppr)
+  int prologue;
 };
 
-__device__ __forceinline__ void affine_operands(int affine, float* scale,
-                                                float* bias,
-                                                const float* scale_p,
-                                                const float* bias_p) {
-  if (affine) {
-    if (scale_p != nullptr) *scale = *scale_p;
-    if (bias_p != nullptr) *bias = *bias_p;
-  }
+// Up to three maps (map f unused when planes == 0) and the operands that
+// every map shares.
+struct Layer {
+  Map m0;
+  Map m1;
+  Map m2;
+  const float* xx;       // the ReLU prologue: pre-ReLU [bx, W, H]
+  const float* yy;       // and [bz, W, H], mask [bx, bz] bytes or null
+  const uint8_t* mask;
+  unsigned bz;
+  FastDiv by_bz;
+  int form;              // ReluForm
+  int exact;             // acosf instead of the polynomial
+  int affine;
+  float scale;
+  float bias;
+  const float* scale_p;  // the scale and bias on the card, or null
+  const float* bias_p;
+};
+
+// The run-time geometry and the staging layout.
+struct Shape {
+  int W, H, Wo, Ho, k, stride, lo, dilation;
+  FastDiv by_h, by_ho, by_in, by_mid, by_out;
+  int ppr;            // planes per run
+  int in_floats;      // staged input floats per stage (a multiple of 4)
+  int stage_floats;   // input and skip floats per stage
+};
+
+__device__ __forceinline__ Map pick(const Layer& L, int f) {
+  return f == 0 ? L.m0 : (f == 1 ? L.m1 : L.m2);
 }
 
-// The staged kernel: block b takes ppb planes of one map (blocks0 blocks
-// for map 0, then blocks1 for map 1, then map 2).
-__global__ void __launch_bounds__(kThreads)
-box_filter_staged(Maps m, unsigned blocks0, unsigned blocks1, int ppb,
-                  int W, int H, int Wo, int Ho, FastDiv by_mid, FastDiv by_h,
-                  FastDiv by_out, FastDiv by_ho, int k, int stride, int lo,
-                  int dilation, int affine, float scale, float bias,
-                  const float* __restrict__ scale_p,
-                  const float* __restrict__ bias_p) {
-  extern __shared__ float smem[];
-  affine_operands(affine, &scale, &bias, scale_p, bias_p);
-  unsigned blk = blockIdx.x;
-  const float* x;
-  float* y;
-  unsigned planes;
-  if (blk < blocks0) {
-    x = m.x0;
-    y = m.y0;
-    planes = m.p0;
-  } else if (blk - blocks0 < blocks1) {
-    blk -= blocks0;
-    x = m.x1;
-    y = m.y1;
-    planes = m.p1;
+// Division by a constant when the geometry is fixed (D > 0), else by
+// multiply-high.
+template <int D>
+__device__ __forceinline__ unsigned divide(unsigned n, const FastDiv& f) {
+  if constexpr (D > 0) {
+    return n / static_cast<unsigned>(D);
   } else {
-    blk -= blocks0 + blocks1;
-    x = m.x2;
-    y = m.y2;
-    planes = m.p2;
-  }
-  const unsigned first = blk * ppb;
-  const int n = static_cast<int>(planes - first < static_cast<unsigned>(ppb)
-                                 ? planes - first : ppb);
-  const int in_size = W * H, mid_size = Wo * H, out_size = Wo * Ho;
-  float* xs = smem;                         // [n, W, H]
-  float* ts = smem + ppb * in_size;         // [n, Wo, H]: the W sums
-  const float* src = x + static_cast<size_t>(first) * in_size;
-  for (int e = threadIdx.x; e < n * in_size; e += blockDim.x) xs[e] = src[e];
-  __syncthreads();
-  for (int e = threadIdx.x; e < n * mid_size; e += blockDim.x) {
-    const int p = fast_div(e, by_mid), r = e - p * mid_size;
-    const int o = fast_div(r, by_h), h = r - o * H;
-    const float* xp = xs + p * in_size + h;
-    const int w0 = o * stride - lo;
-    float col = 0.0f;
-    for (int a = 0; a < k; ++a) {
-      const int w = w0 + a * dilation;
-      const float v = (w >= 0 && w < W) ? xp[w * H] : 0.0f;
-      col = a == 0 ? v : __fadd_rn(col, v);
-    }
-    ts[e] = col;
-  }
-  __syncthreads();
-  float* dst = y + static_cast<size_t>(first) * out_size;
-  for (int e = threadIdx.x; e < n * out_size; e += blockDim.x) {
-    const int p = fast_div(e, by_out), r = e - p * out_size;
-    const int o = fast_div(r, by_ho), q = r - o * Ho;
-    const float* tp = ts + p * mid_size + o * H;
-    const int h0 = q * stride - lo;
-    float sum = 0.0f;
-    for (int c = 0; c < k; ++c) {
-      const int h = h0 + c * dilation;
-      const float v = (h >= 0 && h < H) ? tp[h] : 0.0f;  // F.pad's zeros
-      sum = c == 0 ? v : __fadd_rn(sum, v);
-    }
-    if (affine) sum = __fadd_rn(__fmul_rn(sum, scale), bias);
-    dst[e] = sum;
+    return fast_div(n, f);
   }
 }
 
-// The unstaged kernel: one thread per output element.
+// ---- bulk asynchronous copies and mbarriers (PTX, sm_90) ----
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar,
+                                              unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+      "selp.u32 %0, 1, 0, p;\n\t}"
+      : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Orders this thread's earlier shared-memory accesses (generic proxy)
+// before later bulk copies into the same memory (async proxy).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ void fence_mbarrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// Bytes of a run of n floats at src that one bulk copy takes: all but a
+// tail under 16 bytes, or none when src is not 16-byte aligned.
+__device__ __forceinline__ unsigned bulk_bytes(const float* src,
+                                               unsigned n) {
+  if ((reinterpret_cast<uintptr_t>(src) & 15u) != 0) return 0;
+  return (n * 4u) & ~15u;
+}
+
+// The run r of the flat run axis: its map, first plane and plane count.
+struct Run {
+  Map m;
+  unsigned first;
+  int n;
+};
+
+__device__ __forceinline__ Run run_of(const Layer& L, unsigned r, int ppr) {
+  int f = 0;
+  if (r >= L.m0.runs) {
+    r -= L.m0.runs;
+    f = 1;
+    if (r >= L.m1.runs) {
+      r -= L.m1.runs;
+      f = 2;
+    }
+  }
+  Run run;
+  run.m = pick(L, f);
+  run.first = r * static_cast<unsigned>(ppr);
+  const unsigned left = run.m.planes - run.first;
+  run.n = static_cast<int>(left < static_cast<unsigned>(ppr) ? left : ppr);
+  return run;
+}
+
+// Thread 0: start run r's copies into a stage.
+__device__ __forceinline__ void issue(const Layer& L, const Shape& sh,
+                                      int in_size, int out_size, unsigned r,
+                                      float* stage, uint64_t* bar) {
+  const Run run = run_of(L, r, sh.ppr);
+  const float* src = run.m.x + static_cast<size_t>(run.first) * in_size;
+  const unsigned bx = bulk_bytes(src, run.n * in_size);
+  unsigned bs = 0;
+  const float* skip = nullptr;
+  if (run.m.skip != nullptr) {
+    skip = run.m.skip + static_cast<size_t>(run.first) * out_size;
+    bs = bulk_bytes(skip, run.n * out_size);
+  }
+  mbar_arrive_expect_tx(bar, bx + bs);
+  if (bx != 0) bulk_load(stage, src, bx, bar);
+  if (bs != 0) bulk_load(stage + sh.in_floats, skip, bs, bar);
+}
+
+template <int N, int K, int STR, int LO, int NO>
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSM)
+box_layer_staged(const __grid_constant__ Layer L,
+                 const __grid_constant__ Shape sh, unsigned total_runs) {
+  constexpr bool kFixed = N > 0;
+  // a fixed geometry's row factors per thread: one per pixel slot
+  constexpr int kSlots = kFixed ? (N * N + kThreads - 1) / kThreads : 0;
+  constexpr bool kCache = kFixed && kSlots <= 4;
+  const int W = kFixed ? N : sh.W, H = kFixed ? N : sh.H;
+  const int Wo = kFixed ? NO : sh.Wo, Ho = kFixed ? NO : sh.Ho;
+  const int k = kFixed ? K : sh.k, stride = kFixed ? STR : sh.stride;
+  const int lo = kFixed ? LO : sh.lo, dil = kFixed ? 1 : sh.dilation;
+  const int in_size = W * H, mid_size = Wo * H, out_size = Wo * Ho;
+
+  extern __shared__ __align__(128) float smem[];
+  __shared__ __align__(8) uint64_t bars[kStages];
+  float* const ts = smem + kStages * sh.stage_floats;   // [ppr, Wo, H]
+  const int t = threadIdx.x;
+
+  float scale = L.scale, bias = L.bias;
+  if (L.affine) {
+    if (L.scale_p != nullptr) scale = *L.scale_p;
+    if (L.bias_p != nullptr) bias = *L.bias_p;
+  }
+
+  if (t == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(&bars[s], 1);
+    fence_mbarrier_init();
+    fence_proxy_async();
+  }
+  __syncthreads();
+  // the block's runs: a contiguous share of the run axis, so that
+  // consecutive runs mostly share their row plane (and its factors)
+  const unsigned share = (total_runs + gridDim.x - 1) / gridDim.x;
+  const unsigned r0 = blockIdx.x * share;
+  const unsigned r_end = r0 + share < total_runs ? r0 + share : total_runs;
+  if (t == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      if (r0 + s < r_end)
+        issue(L, sh, in_size, out_size, r0 + s, smem + s * sh.stage_floats,
+              &bars[s]);
+    }
+  }
+
+  // The prologue's thread layout: a thread keeps its pixels across the
+  // run's planes (lanes of planes side by side when a plane has fewer
+  // pixels than the block has threads).
+  const bool wide = in_size >= kThreads;
+  const int lanes = wide ? 1 : kThreads / in_size;
+  const int lane = wide ? 0 : static_cast<int>(
+      divide<kFixed ? N * N : 0>(t, sh.by_in));
+  const int p0 = t - lane * in_size;
+  const int step = wide ? kThreads : in_size;
+
+  RowFactor cached[kCache ? kSlots : 1];
+  unsigned cached_row = UINT_MAX;
+
+  for (unsigned it = 0;; ++it) {
+    const unsigned r = r0 + it;
+    if (r >= r_end) break;
+    const int s = static_cast<int>(it % kStages);
+    float* const xs = smem + s * sh.stage_floats;       // [n, W, H]
+    float* const ss = xs + sh.in_floats;                // [n, Wo, Ho]
+    while (!mbar_try_wait(&bars[s], (it / kStages) & 1u)) {
+    }
+    const Run run = run_of(L, r, sh.ppr);
+    const int n = run.n;
+    const float* const src = run.m.x + static_cast<size_t>(run.first)
+                                       * in_size;
+    const int bulk_in = static_cast<int>(bulk_bytes(src, n * in_size) / 4);
+
+    // 1. the prologue, and the loads that the bulk copy left out
+    if (run.m.prologue != kAsIs || bulk_in < n * in_size) {
+      for (int pl = lane; lane < lanes && pl < n; pl += lanes) {
+        const unsigned q = run.first + pl;
+        float* const plane = xs + pl * in_size;
+        const float* const gplane = src + pl * in_size;
+        unsigned i = 0, j = 0;
+        bool masked = false;
+        if (run.m.prologue == kRelu) {
+          i = fast_div(q, L.by_bz);
+          j = q - i * L.bz;
+          masked = L.mask != nullptr && L.mask[q] != 0;
+          if constexpr (kCache) {
+            if (L.form == kReluFast && i != cached_row) {
+              cached_row = i;
+#pragma unroll
+              for (int u = 0; u < kSlots; ++u) {
+                const int p = p0 + u * step;
+                if (p < in_size)
+                  cached[u] = row_factor(__ldg(L.xx + i * in_size + p));
+              }
+            }
+            // every slot's loads first, so that they are in flight
+            // together, then every slot's ReLU
+            const float* const xrow = L.xx + i * in_size;
+            const float* const yrow = L.yy + j * in_size;
+            const bool need_x = masked || L.form != kReluFast;
+            float vin[kSlots], cx[kSlots], cy[kSlots];
+#pragma unroll
+            for (int u = 0; u < kSlots; ++u) {
+              const int p = p0 + u * step;
+              if (p < in_size) {
+                vin[u] = pl * in_size + p < bulk_in ? plane[p] : gplane[p];
+                cx[u] = need_x ? __ldg(xrow + p) : 0.0f;
+                cy[u] = masked ? 0.0f : __ldg(yrow + p);
+              }
+            }
+#pragma unroll
+            for (int u = 0; u < kSlots; ++u) {
+              const int p = p0 + u * step;
+              if (p < in_size) {
+                if (masked) {
+                  plane[p] = __fmul_rn(cx[u], 0.5f);
+                } else if (L.form == kReluFast) {
+                  plane[p] = relu_factored(vin[u], cached[u],
+                                           row_factor(cy[u]), L.exact);
+                } else {
+                  plane[p] = relu_reference(vin[u], cx[u], cy[u], L.exact);
+                }
+              }
+            }
+            continue;
+          }
+        }
+        // a run-time geometry, or a map without the ReLU: element by
+        // element
+#pragma unroll
+        for (int u = 0; u < (kCache ? kSlots : 1); ++u) {
+          // a fixed geometry unrolls the slots; otherwise one loop
+          for (int p = p0 + u * step; p < in_size;
+               p += (kCache ? in_size : step)) {
+            const int e = pl * in_size + p;
+            float v = e < bulk_in ? plane[p] : gplane[p];
+            if (run.m.prologue == kHalf) {
+              v = __fmul_rn(v, 0.5f);
+            } else if (run.m.prologue == kRelu) {
+              const float* const xrow = L.xx + i * in_size;
+              if (masked) {
+                v = __fmul_rn(__ldg(xrow + p), 0.5f);
+              } else {
+                const float cy = __ldg(L.yy + j * in_size + p);
+                v = L.form == kReluFast
+                    ? relu_factored(v, row_factor(__ldg(xrow + p)),
+                                    row_factor(cy), L.exact)
+                    : relu_reference(v, __ldg(xrow + p), cy, L.exact);
+              }
+            }
+            plane[p] = v;
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // 2. the W pass: [n, W, H] -> [n, Wo, H]
+    for (int e = t; e < n * mid_size; e += kThreads) {
+      const int p = static_cast<int>(
+          divide<kFixed ? NO * N : 0>(e, sh.by_mid));
+      const int rem = e - p * mid_size;
+      const int o = static_cast<int>(divide<kFixed ? N : 0>(rem, sh.by_h));
+      const int h = rem - o * H;
+      const float* xp = xs + p * in_size + h;
+      const int w0 = o * stride - lo;
+      float col = 0.0f;
+#pragma unroll
+      for (int a = 0; a < k; ++a) {
+        const int w = w0 + a * dil;
+        const float v = (w >= 0 && w < W) ? xp[w * H] : 0.0f;
+        col = a == 0 ? v : __fadd_rn(col, v);
+      }
+      ts[e] = col;
+    }
+    __syncthreads();
+
+    // 3. the H pass, the scale and bias, the skip: [n, Wo, H] -> out
+    const size_t out0 = static_cast<size_t>(run.first) * out_size;
+    const float* const gskip = run.m.skip == nullptr ? nullptr
+                                                     : run.m.skip + out0;
+    const int bulk_skip = gskip == nullptr ? 0 : static_cast<int>(
+        bulk_bytes(gskip, n * out_size) / 4);
+    float* const dst = run.m.y + out0;
+    for (int e = t; e < n * out_size; e += kThreads) {
+      const int p = static_cast<int>(
+          divide<kFixed ? NO * NO : 0>(e, sh.by_out));
+      const int rem = e - p * out_size;
+      const int o = static_cast<int>(divide<kFixed ? NO : 0>(rem, sh.by_ho));
+      const int q = rem - o * Ho;
+      const float* tp = ts + p * mid_size + o * H;
+      const int h0 = q * stride - lo;
+      float sum = 0.0f;
+#pragma unroll
+      for (int c = 0; c < k; ++c) {
+        const int h = h0 + c * dil;
+        const float v = (h >= 0 && h < H) ? tp[h] : 0.0f;  // F.pad's zeros
+        sum = c == 0 ? v : __fadd_rn(sum, v);
+      }
+      if (L.affine) sum = __fadd_rn(__fmul_rn(sum, scale), bias);
+      if (gskip != nullptr)
+        sum = __fadd_rn(e < bulk_skip ? ss[e] : gskip[e], sum);
+      dst[e] = sum;
+    }
+    // every thread orders its generic-proxy accesses of the stage (the
+    // prologue's writes, the reads of steps 2 and 3) before the barrier,
+    // after which one thread's bulk copy (async proxy) overwrites it
+    fence_proxy_async();
+    __syncthreads();
+
+    // 4. the stage is free: start the run kStages ahead in it
+    if (t == 0) {
+      const unsigned next = r + kStages;
+      if (next < r_end) issue(L, sh, in_size, out_size, next, xs, &bars[s]);
+    }
+  }
+}
+
+// The prologue's map of one input value: plane q of map m, pixel p.
+__device__ __forceinline__ float prologue_at(const Layer& L, const Map& m,
+                                             unsigned q, int p, int in_size,
+                                             float v) {
+  if (m.prologue == kHalf) return __fmul_rn(v, 0.5f);
+  if (m.prologue != kRelu) return v;
+  const unsigned i = fast_div(q, L.by_bz), j = q - i * L.bz;
+  const float cx = L.xx[static_cast<size_t>(i) * in_size + p];
+  if (L.mask != nullptr && L.mask[q]) return __fmul_rn(cx, 0.5f);
+  const float cy = L.yy[static_cast<size_t>(j) * in_size + p];
+  return L.form == kReluFast ? relu_fast(v, cx, cy, L.exact)
+                             : relu_reference(v, cx, cy, L.exact);
+}
+
+// The unstaged kernel: one thread per output element, the prologue on
+// every tap it reads.
 __global__ void __launch_bounds__(kThreads)
-box_filter_kernel(Maps m, unsigned total, int W, int H, int Wo, int Ho,
-                  FastDiv by_out, FastDiv by_ho,
-                  int k, int stride, int lo, int dilation, int affine,
-                  float scale, float bias, const float* __restrict__ scale_p,
-                  const float* __restrict__ bias_p) {
-  affine_operands(affine, &scale, &bias, scale_p, bias_p);
+box_layer_unstaged(const __grid_constant__ Layer L,
+                   const __grid_constant__ Shape sh, unsigned total) {
+  float scale = L.scale, bias = L.bias;
+  if (L.affine) {
+    if (L.scale_p != nullptr) scale = *L.scale_p;
+    if (L.bias_p != nullptr) bias = *L.bias_p;
+  }
   // 32-bit index arithmetic (the host refuses 2^31 outputs or more)
-  const unsigned per = static_cast<unsigned>(Wo) * Ho;
-  const size_t plane_in = static_cast<size_t>(W) * H;
+  const int W = sh.W, H = sh.H, in_size = W * H;
+  const unsigned per = static_cast<unsigned>(sh.Wo) * sh.Ho;
   for (unsigned e = blockIdx.x * blockDim.x + threadIdx.x; e < total;
        e += gridDim.x * blockDim.x) {
-    unsigned plane = fast_div(e, by_out);
+    unsigned plane = fast_div(e, sh.by_out);
     const unsigned r = e - plane * per;
-    const int o = static_cast<int>(fast_div(r, by_ho));
-    const int q = static_cast<int>(r) - o * Ho;
-    const float* x;
-    float* y;
-    if (plane < m.p0) {
-      x = m.x0;
-      y = m.y0;
-    } else if (plane - m.p0 < m.p1) {
-      plane -= m.p0;
-      x = m.x1;
-      y = m.y1;
-    } else {
-      plane -= m.p0 + m.p1;
-      x = m.x2;
-      y = m.y2;
+    const int o = static_cast<int>(fast_div(r, sh.by_ho));
+    const int q = static_cast<int>(r) - o * sh.Ho;
+    int f = 0;
+    if (plane >= L.m0.planes) {
+      plane -= L.m0.planes;
+      f = 1;
+      if (plane >= L.m1.planes) {
+        plane -= L.m1.planes;
+        f = 2;
+      }
     }
-    const float* xp = x + plane * plane_in;
-    const int w0 = o * stride - lo, h0 = q * stride - lo;
+    const Map m = pick(L, f);
+    const float* xp = m.x + static_cast<size_t>(plane) * in_size;
+    const int w0 = o * sh.stride - sh.lo, h0 = q * sh.stride - sh.lo;
     float sum = 0.0f;
-    for (int c = 0; c < k; ++c) {
-      const int h = h0 + c * dilation;
+    for (int c = 0; c < sh.k; ++c) {
+      const int h = h0 + c * sh.dilation;
       float col = 0.0f;                      // a padded row of F.pad
       if (h >= 0 && h < H) {
-        for (int a = 0; a < k; ++a) {
-          const int w = w0 + a * dilation;
-          const float v = (w >= 0 && w < W) ? xp[w * H + h] : 0.0f;
+        for (int a = 0; a < sh.k; ++a) {
+          const int w = w0 + a * sh.dilation;
+          const float v = (w >= 0 && w < W)
+              ? prologue_at(L, m, plane, w * H + h, in_size, xp[w * H + h])
+              : 0.0f;
           col = a == 0 ? v : __fadd_rn(col, v);
         }
       }
       sum = c == 0 ? col : __fadd_rn(sum, col);
     }
-    if (affine) sum = __fadd_rn(__fmul_rn(sum, scale), bias);
-    y[static_cast<size_t>(plane) * per + r] = sum;
+    if (L.affine) sum = __fadd_rn(__fmul_rn(sum, scale), bias);
+    const size_t out = static_cast<size_t>(plane) * per + r;
+    if (m.skip != nullptr) sum = __fadd_rn(m.skip[out], sum);
+    m.y[out] = sum;
   }
+}
+
+// ---- host side ----
+
+// Grid of the persistent kernel for one shared-memory size on one device,
+// cached per instantiation (a few sizes and devices).
+template <int N, int K, int STR, int LO, int NO>
+int staged_grid(int smem, int device, int* blocks) {
+  struct Entry {
+    int device;
+    int smem;
+    int blocks;
+  };
+  static Entry cache[8];
+  static int used = 0;
+  for (int e = 0; e < used; ++e) {
+    if (cache[e].device == device && cache[e].smem == smem) {
+      *blocks = cache[e].blocks;
+      return 0;
+    }
+  }
+  auto kernel = box_layer_staged<N, K, STR, LO, NO>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxStagedBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                               device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  *blocks = per_sm * sms;
+  if (used < 8) cache[used++] = Entry{device, smem, *blocks};
+  return 0;
+}
+
+template <int N, int K, int STR, int LO, int NO>
+int launch_staged(const Layer& L, const Shape& sh, unsigned total_runs,
+                  int smem, int device, cudaStream_t st) {
+  int blocks = 0;
+  const int err = staged_grid<N, K, STR, LO, NO>(smem, device, &blocks);
+  if (err != 0) return err;
+  const unsigned grid = total_runs < static_cast<unsigned>(blocks)
+                        ? total_runs : static_cast<unsigned>(blocks);
+  box_layer_staged<N, K, STR, LO, NO><<<grid, kThreads, smem, st>>>(
+      L, sh, total_runs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+using Launcher = int (*)(const Layer&, const Shape&, unsigned, int, int,
+                         cudaStream_t);
+
+// The geometries of the ResNet configs (map side, k, stride, lo, output
+// side; dilation 1): mnist_as_tf at 28/14/7, cifar10 at 32/16/8, the
+// residual config's even kernel, the paper ConvNet's k = 7.
+struct Fixed {
+  int n, k, stride, lo, no;
+  Launcher launch;
+};
+
+constexpr Fixed kFixedGeometries[] = {
+    {28, 3, 1, 1, 28, launch_staged<28, 3, 1, 1, 28>},
+    {28, 1, 1, 0, 28, launch_staged<28, 1, 1, 0, 28>},
+    {28, 1, 2, 0, 14, launch_staged<28, 1, 2, 0, 14>},
+    {28, 3, 2, 1, 14, launch_staged<28, 3, 2, 1, 14>},
+    {28, 4, 1, 1, 28, launch_staged<28, 4, 1, 1, 28>},
+    {28, 7, 1, 3, 28, launch_staged<28, 7, 1, 3, 28>},
+    {14, 3, 1, 1, 14, launch_staged<14, 3, 1, 1, 14>},
+    {14, 1, 2, 0, 7, launch_staged<14, 1, 2, 0, 7>},
+    {14, 3, 2, 1, 7, launch_staged<14, 3, 2, 1, 7>},
+    {7, 3, 1, 1, 7, launch_staged<7, 3, 1, 1, 7>},
+    {7, 7, 1, 0, 1, launch_staged<7, 7, 1, 0, 1>},
+    {32, 3, 1, 1, 32, launch_staged<32, 3, 1, 1, 32>},
+    {32, 1, 1, 0, 32, launch_staged<32, 1, 1, 0, 32>},
+    {32, 1, 2, 0, 16, launch_staged<32, 1, 2, 0, 16>},
+    {32, 3, 2, 1, 16, launch_staged<32, 3, 2, 1, 16>},
+    {16, 3, 1, 1, 16, launch_staged<16, 3, 1, 1, 16>},
+    {16, 1, 2, 0, 8, launch_staged<16, 1, 2, 0, 8>},
+    {16, 3, 2, 1, 8, launch_staged<16, 3, 2, 1, 8>},
+    {8, 3, 1, 1, 8, launch_staged<8, 3, 1, 1, 8>},
+    {8, 8, 1, 0, 1, launch_staged<8, 8, 1, 0, 1>},
+};
+
+int pad4(int n) { return (n + 3) & ~3; }
+
+// The staging of a launch: planes per run and the staged kernel's dynamic
+// shared memory (ppr 0: the planes are too large, the unstaged kernel).
+struct Plan {
+  int ppr;
+  int smem;
+  int in_floats;
+  int stage_floats;
+};
+
+Plan plan_of(int in_n, int mid_n, int out_n, bool skip) {
+  // about kRunFloats input floats a run, a multiple of the planes that
+  // make whole 16-byte units of input and of skip (so every run's bulk
+  // copies start aligned), staged kStages deep
+  auto unit = [](int floats) { return floats % 4 == 0 ? 1
+                                      : (floats % 2 == 0 ? 2 : 4); };
+  const int mult = skip && unit(out_n) > unit(in_n) ? unit(out_n)
+                                                    : unit(in_n);
+  int ppr = kRunFloats / in_n;
+  ppr = ppr >= mult ? ppr - ppr % mult : (ppr < 1 ? 1 : ppr);
+  // a stage: the input planes and the skip planes
+  auto stage_of = [&](int p) {
+    return pad4(p * in_n) + (skip ? pad4(p * out_n) : 0);
+  };
+  auto smem_of = [&](int p) {
+    return (kStages * stage_of(p) + static_cast<long long>(p) * mid_n)
+           * static_cast<long long>(sizeof(float));
+  };
+  while (ppr > 1 && smem_of(ppr) > kMaxStagedBytes)
+    ppr = ppr > mult ? ppr - mult : ppr - 1;
+  if (smem_of(ppr) > kMaxStagedBytes) return Plan{0, 0, 0, 0};
+  return Plan{ppr, static_cast<int>(smem_of(ppr)), pad4(ppr * in_n),
+              stage_of(ppr)};
+}
+
+int launch(Layer L, int W, int H, int Wo, int Ho, int k, int stride, int lo,
+           int dilation, bool runtime_geometry, int device,
+           cudaStream_t st) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long planes = static_cast<long long>(L.m0.planes) + L.m1.planes
+                           + L.m2.planes;
+  const long long in_size = static_cast<long long>(W) * H;
+  const long long out_size = static_cast<long long>(Wo) * Ho;
+  if (planes * out_size == 0) return 0;
+  if (planes * out_size > INT_MAX || planes * in_size > INT_MAX
+      || static_cast<long long>(Wo) * H > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool skip = L.m0.skip || L.m1.skip || L.m2.skip;
+  const Plan plan = plan_of(static_cast<int>(in_size), Wo * H,
+                            static_cast<int>(out_size), skip);
+  const Shape sh{W, H, Wo, Ho, k, stride, lo, dilation,
+                 make_fast_div(H), make_fast_div(Ho),
+                 make_fast_div(static_cast<unsigned>(in_size)),
+                 make_fast_div(static_cast<unsigned>(Wo * H)),
+                 make_fast_div(static_cast<unsigned>(out_size)), plan.ppr,
+                 plan.in_floats, plan.stage_floats};
+  if (plan.ppr > 0) {
+    const unsigned ppr = static_cast<unsigned>(plan.ppr);
+    L.m0.runs = (L.m0.planes + ppr - 1) / ppr;
+    L.m1.runs = (L.m1.planes + ppr - 1) / ppr;
+    L.m2.runs = (L.m2.planes + ppr - 1) / ppr;
+    const unsigned total_runs = L.m0.runs + L.m1.runs + L.m2.runs;
+    if (!runtime_geometry && dilation == 1 && W == H && Wo == Ho) {
+      for (const Fixed& g : kFixedGeometries) {
+        if (g.n == W && g.k == k && g.stride == stride && g.lo == lo
+            && g.no == Wo)
+          return g.launch(L, sh, total_runs, plan.smem, device, st);
+      }
+    }
+    return launch_staged<0, 0, 0, 0, 0>(L, sh, total_runs, plan.smem,
+                                        device, st);
+  }
+  const long long total = planes * out_size;
+  const unsigned blocks =
+      static_cast<unsigned>((total + kThreads - 1) / kThreads);
+  box_layer_unstaged<<<blocks, kThreads, 0, st>>>(
+      L, sh, static_cast<unsigned>(total));
+  return static_cast<int>(cudaGetLastError());
+}
+
+Map map_of(const float* x, const float* skip, float* y, long long planes,
+           int prologue) {
+  return Map{x, skip, y, static_cast<unsigned>(planes), 0u, prologue};
 }
 
 }  // namespace
@@ -207,48 +711,61 @@ extern "C" {
 
 // Launches the box filter over p0 + p1 + p2 planes of [W, H] (x_f -> y_f,
 // slot f unused when p_f == 0) on `stream` and returns cudaGetLastError()
-// (0 on success; cudaErrorInvalidValue for 2^31 elements or more).
-// scale_p / bias_p, when not null, point at the float32
-// scale / bias on the card and take the place of scale / bias.  Does not
-// synchronise and allocates nothing.
-int cnn_gp_box_filter(const float* x0, float* y0, long long p0,
-                      const float* x1, float* y1, long long p1,
-                      const float* x2, float* y2, long long p2, int W, int H,
-                      int Wo, int Ho, int k, int stride, int lo, int dilation,
-                      int affine, float scale, float bias,
-                      const float* scale_p, const float* bias_p, int device,
+// (0 on success; cudaErrorInvalidValue for 2^31 elements or more).  Map f
+// takes prologue pro_f (0: as is; 1: halved; 2: the arccos ReLU of a [bx,
+// bz, W, H] pair map, from the pre-ReLU xx [bx, W, H], yy [bz, W, H] and
+// the mask [bx, bz] bytes or null, in relu form `form` (0 "fast", 1
+// "reference"), acosf when `exact`), then the box filter, then with
+// `affine` the scale and the bias, then, when s_f is not null, the skip
+// s_f [p_f, Wo, Ho] added.  scale_p / bias_p, when not null, point at the
+// float32 scale / bias on the card and take the place of scale / bias.
+// `runtime_geometry` takes the kernel with run-time indices even where a
+// fixed geometry's instantiation exists (to time one against the other).
+// Does not synchronise and allocates nothing.
+int cnn_gp_conv_layer(const float* x0, const float* s0, float* y0,
+                      long long p0, int pro0, const float* x1,
+                      const float* s1, float* y1, long long p1, int pro1,
+                      const float* x2, const float* s2, float* y2,
+                      long long p2, int pro2, const float* xx,
+                      const float* yy, const uint8_t* mask, int bz, int form,
+                      int exact, int W, int H, int Wo, int Ho, int k,
+                      int stride, int lo, int dilation, int affine,
+                      float scale, float bias, const float* scale_p,
+                      const float* bias_p, int runtime_geometry, int device,
                       void* stream) {
-  const cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long total = (p0 + p1 + p2) * Wo * Ho;
-  if (total == 0) return 0;
-  if (total > INT_MAX || (p0 + p1 + p2) * W * H > INT_MAX)
+  const bool relu = pro0 == kRelu || pro1 == kRelu || pro2 == kRelu;
+  if (relu && (xx == nullptr || yy == nullptr || bz < 1
+               || (form != kReluFast && form != kReluReference)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Maps m{x0, x1, x2, y0, y1, y2, static_cast<unsigned>(p0),
-               static_cast<unsigned>(p1), static_cast<unsigned>(p2)};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int per_plane = W * H + Wo * H;
-  if (per_plane * static_cast<int>(sizeof(float)) <= kMaxStaticSmem) {
-    const int fit = kStageFloats / per_plane;   // 0 for a plane > 32 KB
-    const int ppb = fit < 1 ? 1
-                    : (fit > kMaxPlanesPerBlock ? kMaxPlanesPerBlock : fit);
-    const unsigned b0 = static_cast<unsigned>((p0 + ppb - 1) / ppb);
-    const unsigned b1 = static_cast<unsigned>((p1 + ppb - 1) / ppb);
-    const unsigned b2 = static_cast<unsigned>((p2 + ppb - 1) / ppb);
-    box_filter_staged<<<b0 + b1 + b2, kThreads,
-                        ppb * per_plane * sizeof(float), st>>>(
-        m, b0, b1, ppb, W, H, Wo, Ho, make_fast_div(Wo * H),
-        make_fast_div(H), make_fast_div(Wo * Ho), make_fast_div(Ho), k,
-        stride, lo, dilation, affine, scale, bias, scale_p, bias_p);
-    return static_cast<int>(cudaGetLastError());
-  }
-  const unsigned blocks =
-      static_cast<unsigned>((total + kThreads - 1) / kThreads);
-  box_filter_kernel<<<blocks, kThreads, 0, st>>>(
-      m, static_cast<unsigned>(total), W, H, Wo, Ho, make_fast_div(Wo * Ho),
-      make_fast_div(Ho), k, stride, lo, dilation, affine, scale, bias,
-      scale_p, bias_p);
-  return static_cast<int>(cudaGetLastError());
+  Layer L{};
+  L.m0 = map_of(x0, s0, y0, p0, pro0);
+  L.m1 = map_of(x1, s1, y1, p1, pro1);
+  L.m2 = map_of(x2, s2, y2, p2, pro2);
+  L.xx = xx;
+  L.yy = yy;
+  L.mask = mask;
+  L.bz = static_cast<unsigned>(bz < 1 ? 1 : bz);
+  L.by_bz = make_fast_div(L.bz);
+  L.form = form;
+  L.exact = exact;
+  L.affine = affine;
+  L.scale = scale;
+  L.bias = bias;
+  L.scale_p = scale_p;
+  L.bias_p = bias_p;
+  return launch(L, W, H, Wo, Ho, k, stride, lo, dilation,
+                runtime_geometry != 0, device,
+                static_cast<cudaStream_t>(stream));
+}
+
+// The staging of a launch over [W, H] planes to [Wo, Ho], with a skip or
+// not: planes per run and the staged kernel's dynamic shared memory in
+// bytes (0 and 0 for the unstaged kernel).
+void cnn_gp_box_filter_plan(int W, int H, int Wo, int Ho, int skip,
+                            int* ppr, int* smem) {
+  const Plan plan = plan_of(W * H, Wo * H, Wo * Ho, skip != 0);
+  *ppr = plan.ppr;
+  *smem = plan.smem;
 }
 
 const char* cnn_gp_box_filter_error_string(int code) {

@@ -14,13 +14,25 @@ calling it on images runs ``kernel_fn``.  ``Mixture.logit`` and the
 ``nn.Parameter``s.  Nothing here needs gradients: ``kernel_fn`` runs under
 ``torch.no_grad``.
 
-On the card every ``Conv2d`` is one launch of the box-filter kernel
-(``ops/boxfilter.py::conv_maps``) and every ``ReLU`` one launch of the
-arccos kernel (``ops/arccos.py::relu_transform``); ``Sum`` and
-``Mixture`` adds and ``input_patch``'s contraction stay torch ops.
-``apply_kernel_reference`` walks the same model with the plain torch
-versions of both, on any device: the yardstick of the kernels, which the
-main path never calls.
+``apply_kernel`` walks a pair tile with the ResNet layer fused
+(``ops/layer.py::conv_layer``): on the card every ``Conv2d`` is one launch
+of the box-filter kernel, which also runs
+
+- a ``ReLU`` whose every consumer is a ``Conv2d``, in the prologue of
+  each of them (a projection block's ``ReLU`` feeds its 1x1 shortcut and
+  its 3x3 branch, so it runs in both);
+- the add of a ``Sum`` branch whose last layer is a ``Conv2d``, in that
+  launch's epilogue, with the running total of the earlier branches as
+  the skip (an empty ``Sequential()`` branch is that total itself).
+
+Every other ``ReLU`` is one launch of the arccos kernel
+(``ops/arccos.py::relu_transform``); every other ``Sum`` add, the
+``Mixture`` and ``input_patch``'s contraction stay torch ops.  A
+diagonal walk (``diag=True``) runs each layer on its own
+(``conv_maps``, ``relu_transform``).  On the CPU the same fused walk runs
+the plain versions.  ``apply_kernel_reference`` walks the model unfused
+with the plain torch versions, on any device: the yardstick of the
+kernels, which the main path never calls.
 """
 
 from __future__ import annotations
@@ -34,7 +46,8 @@ from torch import nn
 
 from . import settings
 from .kernel_patch import KernelPatch
-from .ops import arccos, boxfilter
+from .ops import arccos, boxfilter, layer
+from .ops.layer import _add
 
 __all__ = ["NNGPKernel", "Conv2d", "ReLU", "Sequential", "Sum", "Mixture",
            "resnet_block", "kernel_fn", "input_patch", "apply_kernel",
@@ -77,7 +90,10 @@ def apply_kernel(model, x: torch.Tensor, y: torch.Tensor, same: bool,
     if x.is_cuda:
         settings.check_precision()
     kp = input_patch(x, y, same, diag, diag_mask)
-    kp = model.propagate(kp)
+    if diag:
+        kp = model.propagate(kp)
+    else:
+        kp, _ = model.fused(kp)
     return _finalize(kp, x.shape[0], y.shape[0], diag)
 
 
@@ -122,6 +138,11 @@ def kernel_fn(model, x, y=None, same=None, diag=False,
     return apply_kernel(model, x, y, same, diag, diag_mask)
 
 
+def _relu(kp: KernelPatch, relu: bool) -> KernelPatch:
+    """``kp`` with a waiting ReLU applied (one arccos-kernel launch)."""
+    return arccos.relu_transform(kp) if relu else kp
+
+
 class NNGPKernel(nn.Module):
     """Base class: transforms one kernel patch into another."""
 
@@ -139,6 +160,29 @@ class NNGPKernel(nn.Module):
         """The layer's map of a patch; ``reference=True`` runs the plain
         torch versions of the layer kernels throughout."""
         raise NotImplementedError
+
+    def fused(self, kp: KernelPatch, relu: bool = False,
+              skip: Optional[KernelPatch] = None,
+              defer: bool = False):
+        """The layer's map of a pair patch with the ResNet layer fused:
+        ``relu`` says that ``kp`` still waits for a ``ReLU`` (only a layer
+        that ``opens_with_conv`` is given one to fuse), ``skip`` is a
+        patch to add to the output (the running total of a ``Sum``), and
+        ``defer`` says that the output's one reader is a ``Conv2d``, so
+        a trailing ``ReLU`` may be left waiting.  Returns
+        (patch, whether a ReLU still waits on it).  This default runs the
+        layer's own ``propagate``."""
+        out = self.propagate(_relu(kp, relu))
+        return _add(skip, out), False
+
+    def opens_with_conv(self) -> bool:
+        """Whether the layer's input has one reader, a ``Conv2d``: a
+        ``ReLU`` before it runs in that launch's prologue."""
+        return False
+
+    def closes_with_conv(self) -> bool:
+        """Whether the layer's output is a ``Conv2d``'s."""
+        return False
 
     def layers(self) -> int:
         """Number of conv layers."""
@@ -212,6 +256,15 @@ class Conv2d(NNGPKernel):
         return KernelPatch(out[0], out[1], out[-1] if len(out) == 3
                            else out[1], kp.same, kp.diag, kp.diag_mask)
 
+    def fused(self, kp, relu=False, skip=None, defer=False):
+        return layer.conv_layer(kp, self, relu, skip), False
+
+    def opens_with_conv(self):
+        return True
+
+    def closes_with_conv(self):
+        return True
+
     def layers(self):
         return 1
 
@@ -224,6 +277,12 @@ class ReLU(NNGPKernel):
         if reference:
             return arccos.relu_transform_reference(kp)
         return arccos.relu_transform(kp)
+
+    def fused(self, kp, relu=False, skip=None, defer=False):
+        kp = _relu(kp, relu)
+        if defer and skip is None:
+            return kp, True
+        return _add(skip, arccos.relu_transform(kp)), False
 
     def layers(self):
         return 0
@@ -239,6 +298,25 @@ class Sequential(NNGPKernel):
         for mod in self.mods:
             kp = mod.propagate(kp, reference)
         return kp
+
+    def fused(self, kp, relu=False, skip=None, defer=False):
+        waiting = relu
+        for i, mod in enumerate(self.mods):
+            last = i == len(self.mods) - 1
+            if waiting and not mod.opens_with_conv():
+                kp, waiting = _relu(kp, True), False
+            kp, waiting = mod.fused(
+                kp, waiting, skip if last else None,
+                defer if last else self.mods[i + 1].opens_with_conv())
+        if not self.mods and (skip is not None or not defer):
+            kp, waiting = _add(skip, _relu(kp, waiting)), False
+        return kp, waiting
+
+    def opens_with_conv(self):
+        return bool(self.mods) and self.mods[0].opens_with_conv()
+
+    def closes_with_conv(self):
+        return bool(self.mods) and self.mods[-1].closes_with_conv()
 
     def layers(self):
         return sum(mod.layers() for mod in self.mods)
@@ -258,6 +336,23 @@ class Sum(NNGPKernel):
         for mod in self.mods[1:]:
             total = total + mod.propagate(kp, reference)
         return total
+
+    def fused(self, kp, relu=False, skip=None, defer=False):
+        if relu and not self.opens_with_conv():
+            kp, relu = _relu(kp, True), False
+        total, _ = self.mods[0].fused(kp, relu)
+        for mod in self.mods[1:]:
+            if mod.closes_with_conv():
+                # the running total as the branch's epilogue skip
+                total, _ = mod.fused(kp, relu, total)
+            else:
+                total = total + mod.fused(kp, relu)[0]
+        return _add(skip, total), False
+
+    def opens_with_conv(self):
+        # a ReLU read by several branches (a projection block's) launches
+        # once on its own rather than once in each branch's prologue
+        return len(self.mods) == 1 and self.mods[0].opens_with_conv()
 
     def layers(self):
         return max(mod.layers() for mod in self.mods)
@@ -282,6 +377,14 @@ class Mixture(NNGPKernel):
         for i, mod in enumerate(self.mods[1:], start=1):
             total = total + mod.propagate(kp, reference) * proportions[i]
         return total
+
+    def fused(self, kp, relu=False, skip=None, defer=False):
+        kp = _relu(kp, relu)
+        proportions = torch.softmax(self.logit, dim=0).to(kp.xy.device)
+        total = self.mods[0].fused(kp)[0] * proportions[0]
+        for i, mod in enumerate(self.mods[1:], start=1):
+            total = total + mod.fused(kp)[0] * proportions[i]
+        return _add(skip, total), False
 
     def layers(self):
         return max(mod.layers() for mod in self.mods)

@@ -18,9 +18,15 @@ versions, pair and diagonal modes, with or without the mask), within 1e-6
 of max|xy'| of the plain version; xx' and yy' stay torch multiplies.
 ``relu_transform`` runs the plain version for CPU tensors and launches
 the kernel for CUDA tensors, or raises (a diagonal block of one set,
-whose xy' is xx', launches nothing).  ``launches`` counts kernel launches;
-``copies`` counts inputs that were not contiguous and were copied before
-a launch.
+whose xy' is xx', launches nothing).  A ReLU whose every consumer is a
+``Conv2d`` runs instead in the box filter's prologue (``ops/layer.py``),
+on the same device math (``csrc/arccos.cuh``).  ``launches`` counts this
+kernel's launches; ``copies`` counts inputs that were not contiguous and
+were copied before a launch.
+
+``settings.relu_method`` names the JAX package's lowering of the ReLU;
+the port has one, and refuses an unknown name as JAX does
+(``check_method``).
 """
 
 from __future__ import annotations
@@ -37,7 +43,8 @@ from ..kernel_patch import KernelPatch
 from . import cuda_lib
 
 __all__ = ["relu_transform", "relu_transform_reference", "relu_xy_reference",
-           "acos_f32", "F32_TINY", "build", "launches", "copies"]
+           "acos_f32", "F32_TINY", "check_method", "METHODS", "build",
+           "launches", "copies"]
 
 launches = 0   # ReLU kernel launches
 copies = 0     # inputs copied to make them contiguous before a launch
@@ -45,6 +52,16 @@ _lib = None
 
 F32_TINY = float(np.finfo(np.float32).tiny)
 _HALF_PI = math.pi / 2.0
+# the JAX package's lowerings of the ReLU (settings.relu_method)
+METHODS = ("auto", "xla")
+
+
+def check_method() -> None:
+    """Raise ``ValueError`` on an unknown ``settings.relu_method``, as
+    ``cnn_gp_tpu/ops/arccos.py::relu_transform`` does."""
+    from .. import settings
+    if settings.relu_method not in METHODS:
+        raise ValueError(f"unknown relu method {settings.relu_method!r}")
 
 
 def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
@@ -150,6 +167,7 @@ def relu_transform_reference(kp: KernelPatch) -> KernelPatch:
     """The transform on a whole patch in plain torch
     (``cnn_gp_tpu.ops.arccos._relu_xla``, which the JAX ``relu_transform``
     dispatches to)."""
+    check_method()
     return _transform(kp, relu_xy_reference)
 
 
@@ -160,6 +178,7 @@ def relu_transform(kp: KernelPatch) -> KernelPatch:
     wanted."""
     if kp.xy.device.type == "cpu":
         return relu_transform_reference(kp)
+    check_method()
     return _transform(kp, _on_card)
 
 

@@ -13,8 +13,16 @@ On the card the same functions are one hand-written CUDA kernel,
 all of a ``Conv2d``'s fields (the xy pair map and the xx / yy side maps)
 in one launch, ``box_filter_2d`` one map without the scale and bias.
 Both run the plain version for CPU tensors and launch the kernel for CUDA
-tensors, or raise.  ``launches`` counts kernel launches; ``copies`` counts
-inputs that were not contiguous and were copied before a launch.
+tensors, or raise.  The same kernel also runs the fused ResNet layer of
+``ops/layer.py`` (the ReLU in its prologue, the ``Sum`` add in its
+epilogue; ``_launch_layer``).  ``launches`` counts every launch of the
+kernel; ``prologue_launches`` and ``epilogue_launches`` count those with
+the ReLU prologue and with the skip epilogue; ``copies`` counts inputs
+that were not contiguous and were copied before a launch.
+
+``settings.conv_method`` names the JAX package's lowering of the box
+filter; the port has one lowering, which computes each of them, and
+refuses an unknown name as JAX does (``check_method``).
 
 It deliberately avoids ``F.conv2d``: cuDNN runs float32 convolutions in
 TF32 by default, which keeps about three decimal digits.
@@ -34,14 +42,31 @@ from . import cuda_lib
 
 __all__ = ["same_padding", "resolve_padding", "out_size", "box_filter_2d",
            "box_filter_2d_reference", "conv_maps", "conv_maps_reference",
-           "build", "launches", "copies"]
+           "check_method", "METHODS", "build", "launches",
+           "prologue_launches", "epilogue_launches", "copies"]
 
 PadT = Tuple[int, int]
 Operand = Union[None, float, torch.Tensor]
 
-launches = 0   # box-filter kernel launches
+launches = 0            # box-filter kernel launches, every form
+prologue_launches = 0   # of them, with the ReLU prologue
+epilogue_launches = 0   # of them, with the skip epilogue
 copies = 0     # inputs copied to make them contiguous before a launch
 _lib = None
+
+# the JAX package's lowerings of the box filter (settings.conv_method)
+METHODS = ("shifts", "separable", "direct", "matmul")
+# what a fused launch's prologue does to a map (csrc/boxfilter.cu)
+AS_IS, HALF, RELU = 0, 1, 2
+
+
+def check_method() -> None:
+    """Raise ``ValueError`` on an unknown ``settings.conv_method``, as
+    ``cnn_gp_tpu/ops/boxfilter.py::box_filter_2d`` does."""
+    from .. import settings
+    if settings.conv_method not in METHODS:
+        raise ValueError(
+            f"unknown box filter method {settings.conv_method!r}")
 
 
 def same_padding(kernel_size: int, dilation: int = 1) -> PadT:
@@ -117,6 +142,7 @@ def box_filter_2d_reference(x: torch.Tensor, kernel_size: int,
                             dilation: int = 1) -> torch.Tensor:
     """Windowed sum over the trailing two dims of ``x`` ([..., W, H]) in
     plain torch: the W slices, then the H slices, each added in order."""
+    check_method()
     pad = resolve_padding(padding, kernel_size, dilation)
     y = _shift_sum_1d(x, x.ndim - 2, kernel_size, stride, pad, dilation)
     return _shift_sum_1d(y, x.ndim - 1, kernel_size, stride, pad, dilation)
@@ -181,18 +207,34 @@ def build() -> float:
         return 0.0
     seconds = cuda_lib.build()
     lib = cuda_lib.library("boxfilter")
-    fn = lib.cnn_gp_box_filter
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong] * 3
-                   + [ctypes.c_int] * 9 + [ctypes.c_float] * 2
-                   + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    layer = lib.cnn_gp_conv_layer
+    ptr, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                          ctypes.c_float)
+    layer.argtypes = ([ptr, ptr, ptr, i64, i32] * 3 + [ptr] * 3
+                      + [i32] * 12 + [f32] * 2 + [ptr] * 2
+                      + [i32, i32, ptr])
+    layer.restype = ctypes.c_int
+    plan_fn = lib.cnn_gp_box_filter_plan
+    plan_fn.argtypes = [i32] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2
+    plan_fn.restype = None
     lib.cnn_gp_box_filter_error_string.argtypes = [ctypes.c_int]
     lib.cnn_gp_box_filter_error_string.restype = ctypes.c_char_p
     _lib = types.SimpleNamespace(
-        cnn_gp_box_filter=fn,
+        cnn_gp_conv_layer=layer, cnn_gp_box_filter_plan=plan_fn,
         error_string=lambda code: lib.cnn_gp_box_filter_error_string(
             code).decode())
     return seconds
+
+
+def plan(w: int, h: int, wo: int, ho: int, skip: bool) -> Tuple[int, int]:
+    """(planes per run, dynamic shared memory bytes) of the staged kernel
+    for [w, h] planes filtered to [wo, ho], with a skip or not; (0, 0)
+    when the planes take the unstaged kernel.  Builds the library."""
+    build()
+    ppr, smem = ctypes.c_int(), ctypes.c_int()
+    _lib.cnn_gp_box_filter_plan(w, h, wo, ho, int(skip), ctypes.byref(ppr),
+                                ctypes.byref(smem))
+    return ppr.value, smem.value
 
 
 def _requires_grad(t) -> bool:
@@ -202,6 +244,7 @@ def _requires_grad(t) -> bool:
 def _on_card(geom: Geometry, maps: List[torch.Tensor], scale: Operand,
              bias: Operand) -> List[torch.Tensor]:
     """The CUDA route: launch the kernel or raise."""
+    check_method()
     if maps[0].device.type != "cuda":
         raise ValueError(f"the box-filter kernel runs on cuda tensors, not "
                          f"on {maps[0].device}")
@@ -289,9 +332,28 @@ def _contiguous(t: torch.Tensor) -> torch.Tensor:
 
 def _launch(geom: Geometry, maps: List[torch.Tensor], scale: Operand,
             bias: Operand, stream) -> List[torch.Tensor]:
-    """One kernel launch over every map (three at most) on ``stream``;
-    returns the new output maps."""
-    global launches
+    """One kernel launch over every map (three at most) on ``stream``, no
+    prologue and no skip; returns the new output maps."""
+    return _launch_layer(geom, maps, [AS_IS] * len(maps), [None] * len(maps),
+                         None, scale, bias, stream)
+
+
+def _launch_layer(geom: Geometry, maps: List[torch.Tensor],
+                  prologues: List[int], skips: List[Optional[torch.Tensor]],
+                  side, scale: Operand, bias: Operand, stream,
+                  runtime_geometry: bool = False) -> List[torch.Tensor]:
+    """One launch of the kernel on ``stream``: map f (up to three) through
+    its prologue (``AS_IS``, ``HALF`` or ``RELU``), the box filter, the
+    scale and bias (none when ``scale`` is None) and, where ``skips[f]``
+    is a tensor of the output's shape, the skip added.  ``side`` is
+    ``(xx, yy, mask, form, exact)`` for a ``RELU`` prologue (map 0 a
+    [bx, bz, W, H] pair map; xx [bx, W, H] and yy [bz, W, H] its
+    pre-ReLU side maps; mask [bx, bz] bool or None; form 0 "fast", 1
+    "reference"; exact: acosf) and None otherwise.
+    ``runtime_geometry`` takes the kernel with run-time indices even
+    where the geometry has a fixed instantiation (to time the two).
+    Returns the new output maps."""
+    global launches, prologue_launches, epilogue_launches
     if not 1 <= len(maps) <= 3:
         raise ValueError(f"one to three maps per launch, got {len(maps)}")
     device = maps[0].device
@@ -306,24 +368,73 @@ def _launch(geom: Geometry, maps: List[torch.Tensor], scale: Operand,
     wo, ho = geom.out_shape(w, h)
     if wo < 1 or ho < 1:
         raise ValueError(f"{geom} leaves no output of a {w}x{h} map")
+    if len(prologues) != len(maps) or len(skips) != len(maps):
+        raise ValueError("one prologue and one skip (or None) per map")
+    relu = RELU in prologues
+    if relu != (side is not None) or any(
+            p not in (AS_IS, HALF, RELU) for p in prologues):
+        raise ValueError(f"prologues {prologues} and side operands "
+                         f"{'given' if side is not None else 'none'} "
+                         f"disagree")
+    bz = 0
+    if relu:
+        xx, yy, mask, form, exact = side
+        if prologues.index(RELU) != 0 or prologues.count(RELU) != 1:
+            raise ValueError("the ReLU prologue runs on map 0 alone")
+        xy = maps[0]
+        bx, bz = xy.shape[:2] if xy.ndim == 4 else (0, 0)
+        for name, t in (("xx", xx), ("yy", yy)):
+            if t.dtype != torch.float32 or t.device != device:
+                raise ValueError(f"{name} must be float32 on {device}, got "
+                                 f"{t.dtype} on {t.device}")
+        if not (xy.ndim == 4 and xx.shape == (bx, w, h)
+                and yy.shape == (bz, w, h)):
+            raise ValueError(f"the ReLU prologue takes xy [Nx, Ny, W, H], "
+                             f"xx [Nx, W, H], yy [Ny, W, H], got "
+                             f"{tuple(xy.shape)}, {tuple(xx.shape)}, "
+                             f"{tuple(yy.shape)}")
+        if mask is not None and (mask.dtype != torch.bool
+                                 or mask.shape != (bx, bz)
+                                 or mask.device != device):
+            raise ValueError(f"mask must be bool [{bx}, {bz}] on {device}, "
+                             f"got {mask.dtype} {tuple(mask.shape)} on "
+                             f"{mask.device}")
+        # held until the launch: a copy freed earlier could be reused
+        side = [_contiguous(xx), _contiguous(yy),
+                None if mask is None else _contiguous(mask)]
+    else:
+        side, form, exact = [None, None, None], 0, 0
     maps = [_contiguous(a) for a in maps]
     outs = [torch.empty(a.shape[:-2] + (wo, ho), dtype=torch.float32,
                         device=device) for a in maps]
+    for o, s in zip(outs, skips):
+        if s is not None and (s.dtype != torch.float32 or s.device != device
+                              or s.shape != o.shape):
+            raise ValueError(f"a skip must be float32 {tuple(o.shape)} on "
+                             f"{device}, got {s.dtype} {tuple(s.shape)} on "
+                             f"{s.device}")
+    skips = [None if s is None else _contiguous(s) for s in skips]
     slots = []
     for f in range(3):
         if f < len(maps):
-            slots += [maps[f].data_ptr(), outs[f].data_ptr(),
-                      maps[f].numel() // (w * h)]
+            slots += [maps[f].data_ptr(),
+                      None if skips[f] is None else skips[f].data_ptr(),
+                      outs[f].data_ptr(), maps[f].numel() // (w * h),
+                      prologues[f]]
         else:
-            slots += [None, None, 0]
+            slots += [None, None, None, 0, AS_IS]
     scale_v, scale_p = _operand(scale, device)
     bias_v, bias_p = _operand(bias, device)
     k, s, (lo, _), d = geom
-    err = _lib.cnn_gp_box_filter(
-        *slots, w, h, wo, ho, k, s, lo, d, int(scale is not None), scale_v,
-        bias_v, scale_p, bias_p, device.index, stream)
+    err = _lib.cnn_gp_conv_layer(
+        *slots, *[None if t is None else t.data_ptr() for t in side], bz,
+        form, exact, w, h, wo, ho, k, s, lo, d, int(scale is not None),
+        scale_v, bias_v, scale_p, bias_p, int(runtime_geometry),
+        device.index, stream)
     if err != 0:
         raise RuntimeError(f"box-filter kernel launch failed: cuda error "
                            f"{err} ({_lib.error_string(err)})")
     launches += 1
+    prologue_launches += relu
+    epilogue_launches += any(s is not None for s in skips)
     return outs

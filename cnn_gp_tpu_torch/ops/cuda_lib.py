@@ -27,7 +27,7 @@ __all__ = ["SOURCES", "HEADERS", "BUILD_DIR", "NVCC_FLAGS", "build", "library",
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # library name -> source: the megakernel's pair kernel and pre-pass, the
-# Conv2d box filter and the arccos ReLU
+# Conv2d box filter (with the fused ResNet layer) and the arccos ReLU
 SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
            for name in ("megakernel", "diag_maps", "boxfilter", "arccos")}
 HEADERS = sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cuh")))
@@ -106,16 +106,22 @@ def library(name: str) -> ctypes.CDLL:
 
 _ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 _REGS = re.compile(r"Used (\d+) registers")
+_SMEM = re.compile(r"(\d+) bytes smem")
 _SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
-_TEMPLATE = re.compile(r"ILi(\d+)ELi(\d+)E")
+_TEMPLATE = re.compile(r"I((?:Li\d+E)+)E")
 _KERNELS = ("pair_kernel_generic", "pair_kernel", "diag_maps_kernel",
-            "box_filter_staged", "box_filter_kernel", "relu_kernel")
+            "box_layer_staged", "box_layer_unstaged", "relu_kernel")
 
 
 def ptxas_report(log: str) -> List[dict]:
     """One dict per kernel in ptxas's ``-v`` output: ``kernel`` (a
     readable name: ``pair_kernel<28,7>`` for the register kernel of 28x28
-    maps and k=7), ``registers``, ``spill_stores``, ``spill_loads``."""
+    maps and k=7, ``box_layer_staged<28,3,1,1,28>`` for the box filter of
+    28x28 maps, k=3, stride 1, lo 1, to 28x28, ``box_layer_staged<0,0,0,
+    0,0>`` for its run-time geometry), ``registers``, ``spill_stores``,
+    ``spill_loads``, and ``smem`` where ptxas reports static shared
+    memory (its bytes; the staged box filter's planes take dynamic shared
+    memory on top, ``boxfilter.plan``)."""
     out: List[dict] = []
     for line in log.splitlines():
         m = _ENTRY.search(line)
@@ -124,8 +130,8 @@ def ptxas_report(log: str) -> List[dict]:
             for base in _KERNELS:
                 if base in name:
                     t = _TEMPLATE.search(name)
-                    name = base + (f"<{t.group(1)},{t.group(2)}>"
-                                   if t and base == "pair_kernel" else "")
+                    args = re.findall(r"Li(\d+)E", t.group(1)) if t else []
+                    name = base + (f"<{','.join(args)}>" if args else "")
                     break
             out.append({"kernel": name, "registers": None,
                         "spill_stores": None, "spill_loads": None})
@@ -139,4 +145,7 @@ def ptxas_report(log: str) -> List[dict]:
         m = _REGS.search(line)
         if m:
             out[-1]["registers"] = int(m.group(1))
+            s = _SMEM.search(line)
+            if s:
+                out[-1]["smem"] = int(s.group(1))
     return out

@@ -13,8 +13,12 @@ import contextlib
 
 import torch
 
-# The port has one lowering each for the box filter and the ReLU; these
-# record them under the JAX package's names (its defaults) for snapshot().
+# The port has one lowering each for the box filter and the ReLU, which
+# computes what each of the JAX package's does; these record them under
+# its names (its defaults) for snapshot(), and an unknown name raises
+# ValueError where JAX's would (ops/boxfilter.py::check_method: "shifts",
+# "separable", "direct", "matmul"; ops/arccos.py::check_method: "auto",
+# "xla").
 conv_method = "separable"
 relu_method = "auto"
 # arccos implementation inside the ReLU transform: "poly" (Cephes-style

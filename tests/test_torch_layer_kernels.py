@@ -21,6 +21,7 @@ from cnn_gp_tpu_torch import configs
 from cnn_gp_tpu_torch.kernels import apply_kernel, apply_kernel_reference
 from cnn_gp_tpu_torch.ops import arccos as tarc
 from cnn_gp_tpu_torch.ops import boxfilter as tbox
+from cnn_gp_tpu_torch.ops import layer as tlayer
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -182,7 +183,7 @@ class _FakeBoxLib:
     def __init__(self, error=0):
         self.calls, self.error = [], error
 
-    def cnn_gp_box_filter(self, *args):
+    def cnn_gp_conv_layer(self, *args):
         self.calls.append(args)
         return self.error
 
@@ -226,14 +227,18 @@ def test_box_wrapper_passes_shapes_scale_and_counts(monkeypatch):
     outs = tbox._launch(geom, [xy, xx, yy], 2.79 / 9, 0.1, 0)
     assert (tbox.launches, tbox.copies) == (before[0] + 1, before[1] + 1)
     (args,) = lib.calls
-    assert args[1:3] == (outs[0].data_ptr(), 30)
+    # (input, skip, output, planes, prologue) per map: no skip, as is
+    assert args[1:5] == (None, outs[0].data_ptr(), 30, tbox.AS_IS)
     assert args[0] != xy.data_ptr()                  # the contiguous copy
-    assert args[3:6] == (xx.data_ptr(), outs[1].data_ptr(), 5)
-    assert args[6:9] == (yy.data_ptr(), outs[2].data_ptr(), 6)
-    assert args[9:18] == (28, 28, 14, 14, 3, 2, 1, 1, 1)
-    assert args[18] == float(np.float32(2.79 / 9)) != 2.79 / 9
-    assert args[19] == float(np.float32(0.1))
-    assert args[20:22] == (None, None)
+    assert args[5:10] == (xx.data_ptr(), None, outs[1].data_ptr(), 5,
+                          tbox.AS_IS)
+    assert args[10:15] == (yy.data_ptr(), None, outs[2].data_ptr(), 6,
+                           tbox.AS_IS)
+    assert args[15:21] == (None, None, None, 0, 0, 0)   # no ReLU operands
+    assert args[21:30] == (28, 28, 14, 14, 3, 2, 1, 1, 1)
+    assert args[30] == float(np.float32(2.79 / 9)) != 2.79 / 9
+    assert args[31] == float(np.float32(0.1))
+    assert args[32:34] == (None, None)
     assert [tuple(o.shape) for o in outs] == [(5, 6, 14, 14), (5, 14, 14),
                                               (6, 14, 14)]
     assert all(o.is_contiguous() and o.dtype == torch.float32 for o in outs)
@@ -248,14 +253,15 @@ def test_box_wrapper_one_map_and_tensor_operands(monkeypatch):
     x = torch.zeros(4, 7, 7)
     (out,) = tbox._launch(tbox.Geometry.of(7, 1, 0, 1), [x], None, None, 0)
     args = lib.calls[-1]
-    assert args[2] == 4 and args[3:9] == (None, None, 0, None, None, 0)
-    assert args[9:18] == (7, 7, 1, 1, 7, 1, 0, 1, 0)
+    assert args[3] == 4
+    assert args[5:15] == (None, None, None, 0, tbox.AS_IS) * 2
+    assert args[21:30] == (7, 7, 1, 1, 7, 1, 0, 1, 0)
     assert tuple(out.shape) == (4, 1, 1)
     scale = torch.tensor(3.0) / 9
     tbox._launch(tbox.Geometry.of(3, 1, "same", 1), [x], scale,
                  torch.tensor(0.5), 0)
     args = lib.calls[-1]
-    assert args[17:22] == (1, float(scale), 0.5, None, None)
+    assert args[29:34] == (1, float(scale), 0.5, None, None)
     assert tbox.launches >= 2
 
 
@@ -348,19 +354,46 @@ def test_relu_wrapper_raises(monkeypatch):
         tarc.relu_transform(meta)
 
 
+def _plain_layer_launch(geom, maps, prologues, skips, side, scale, bias):
+    """What one fused launch computes, map by map, in plain torch: the
+    prologue, the scaled box filter, the skip added."""
+    outs = []
+    for x, pro, skip in zip(maps, prologues, skips):
+        if pro == tbox.RELU:
+            xx, yy, mask, _, _ = side
+            x = tarc.relu_xy_reference(x, xx, yy, mask, False)
+        elif pro == tbox.HALF:
+            x = x * 0.5
+        out = tbox.conv_maps_reference([x], *geom, scale, bias)[0]
+        outs.append((out if skip is None else skip + out).contiguous())
+    return outs
+
+
 @pytest.fixture()
 def kernel_route(monkeypatch):
-    """The CUDA route of both layers on CPU tensors: the launches are
+    """The CUDA route of the layers on CPU tensors: the launches are
     stubbed by the plain forward (under no_grad, as a kernel computes
     it), so everything around them, the autograd Functions included,
-    runs as on the card.  Counts every stubbed launch."""
-    counts = {"box": 0, "relu": 0}
+    runs as on the card.  Counts every stubbed launch: every box-filter
+    launch ("box"), of them those with the ReLU prologue ("prologue") and
+    with the skip epilogue ("epilogue"), and the standalone ReLU
+    launches ("relu")."""
+    counts = {"box": 0, "prologue": 0, "epilogue": 0, "relu": 0}
 
     def box_launch(geom, maps, scale, bias, stream):
         counts["box"] += 1
         with torch.no_grad():
             return [o.contiguous() for o in tbox.conv_maps_reference(
                 maps, *geom, scale, bias)]
+
+    def layer_launch(geom, maps, prologues, skips, side, scale, bias,
+                     stream):
+        counts["box"] += 1
+        counts["prologue"] += tbox.RELU in prologues
+        counts["epilogue"] += any(s is not None for s in skips)
+        with torch.no_grad():
+            return _plain_layer_launch(geom, maps, prologues, skips, side,
+                                       scale, bias)
 
     def relu_launch(xy, xx, yy, mask, mode, exact, stream):
         counts["relu"] += 1
@@ -369,7 +402,11 @@ def kernel_route(monkeypatch):
                                           mode == tarc.DIAGONAL)
 
     monkeypatch.setattr(tbox, "_launch", box_launch)
+    monkeypatch.setattr(tbox, "_launch_layer", layer_launch)
     monkeypatch.setattr(tarc, "_launch", relu_launch)
+    monkeypatch.setattr(
+        tlayer, "conv_layer", lambda kp, conv, relu=False, skip=None:
+        tlayer._route(kp, conv, relu, skip, 0))
     monkeypatch.setattr(
         tbox, "conv_maps", lambda maps, k, s, p, d, scale, bias: tbox._route(
             tbox.Geometry.of(k, s, p, d), list(maps), scale, bias, 0))
@@ -396,6 +433,13 @@ def _small_resnet(learnable):
         T.ReLU(), conv(4, padding=0))
 
 
+# one pair tile of _small_resnet through the fused walk: 7 Conv2d; the
+# projection block's ReLU (two readers) one standalone launch, the four
+# ReLUs before a single Conv2d in its prologue; the second branch's add
+# in the epilogue of its last convolution
+SMALL_RESNET_LAUNCHES = {"box": 7, "prologue": 4, "epilogue": 1, "relu": 1}
+
+
 def _leaf_grads(model, x, z, mask, ct):
     with T.settings.override(grad_safe=True):
         k = apply_kernel(model, x, z, False, False, mask)
@@ -408,9 +452,9 @@ def _leaf_grads(model, x, z, mask, ct):
 @pytest.mark.parametrize("relu_impl", ["fast", "reference"])
 def test_autograd_functions_give_plain_gradients(kernel_route, relu_impl):
     """Leaf gradients (var_weight, var_bias, logit) of a small masked
-    ResNet tile through both autograd Functions equal plain autograd's
-    (apply_kernel_reference, no Function) within 1e-6; the forward has the
-    same bits."""
+    ResNet tile through the fused layer's and the ReLU's autograd
+    Functions equal plain autograd's (apply_kernel_reference, no
+    Function) within 1e-6; the forward has the same bits."""
     r = np.random.RandomState(2)
     x = torch.from_numpy(r.rand(5, 2, 8, 8).astype(np.float32))
     z = torch.cat([x[3:], torch.from_numpy(
@@ -425,12 +469,71 @@ def test_autograd_functions_give_plain_gradients(kernel_route, relu_impl):
     with T.settings.override(relu_impl=relu_impl, grad_safe=True):
         got_k = apply_kernel(model, x, z, False, False, mask)
         got = torch.autograd.grad((got_k * ct).sum(), params)
-        assert kernel_route == {"box": 7, "relu": 5}
+        assert kernel_route == SMALL_RESNET_LAUNCHES
         want_k = apply_kernel_reference(model, x, z, False, False, mask)
         want = torch.autograd.grad((want_k * ct).sum(), params)
-    assert kernel_route == {"box": 7, "relu": 5}
+    assert kernel_route == SMALL_RESNET_LAUNCHES
     assert torch.equal(got_k, want_k)
     for name, g, w in zip(names, got, want):
+        g, w = g.numpy(), w.numpy()
+        assert np.isfinite(g).all()
+        assert np.abs(g - w).max() <= 1e-6 * max(np.abs(w).max(), 1e-3), name
+
+
+def _small_residual(learnable):
+    """A small net of the residual config's form: Sum branches that end
+    in a ReLU, each a standalone ReLU launch and a torch add."""
+    def conv(k, **kw):
+        return T.Conv2d(k, var_weight=1.7, var_bias=0.3,
+                        learnable=learnable, **kw)
+    return T.Sequential(
+        conv(3),
+        T.Sum([T.Sequential(), T.Sequential(conv(4), T.ReLU())]),
+        T.Sum([T.Sequential(), T.Sequential(conv(3), T.ReLU())]),
+        conv(3), T.ReLU(), conv(8, padding=0))
+
+
+@pytest.mark.parametrize("relu_impl", ["fast", "reference"])
+@pytest.mark.parametrize("leg", ["residual", "diagonal"])
+def test_standalone_functions_give_plain_gradients(kernel_route, monkeypatch,
+                                                   relu_impl, leg):
+    """The standalone launches' autograd Functions under grad_safe, each
+    seen on the path: the ReLU's (_ReluXY) on a masked pair tile of
+    _small_residual, the box filter's (_ConvMaps) on a diagonal of
+    _small_resnet (the unfused walk).  The forward has the bits of
+    apply_kernel_reference and every leaf's gradient is within 1e-6 of
+    plain autograd's."""
+    applied = {"relu": 0, "box": 0}
+    for name, fn in (("relu", tarc._ReluXY), ("box", tbox._ConvMaps)):
+        def counted(*args, _name=name, _apply=fn.apply):
+            applied[_name] += 1
+            return _apply(*args)
+        monkeypatch.setattr(fn, "apply", counted)
+    r = np.random.RandomState(7)
+    x = torch.from_numpy(r.rand(5, 2, 8, 8).astype(np.float32))
+    if leg == "residual":
+        model = _small_residual(learnable=True)
+        z = torch.cat([x[3:], torch.from_numpy(
+            r.rand(4, 2, 8, 8).astype(np.float32))])
+        mask = torch.arange(5)[:, None] == 3 + torch.arange(6)[None, :]
+        args = (x, z, False, False, mask)
+        ct = torch.from_numpy(r.rand(5, 6).astype(np.float32))
+        want_counts = {"box": 5, "prologue": 1, "epilogue": 0, "relu": 2}
+    else:
+        model = _small_resnet(learnable=True)
+        args = (x, x, True, True)
+        ct = torch.from_numpy(r.rand(5).astype(np.float32))
+        want_counts = {"box": 7, "prologue": 0, "epilogue": 0, "relu": 0}
+    params = [p for _, p in model.named_parameters()]
+    with T.settings.override(relu_impl=relu_impl, grad_safe=True):
+        got_k = apply_kernel(model, *args)
+        got = torch.autograd.grad((got_k * ct).sum(), params)
+        assert kernel_route == want_counts
+        assert applied[{"residual": "relu", "diagonal": "box"}[leg]] > 0
+        want_k = apply_kernel_reference(model, *args)
+        want = torch.autograd.grad((want_k * ct).sum(), params)
+    assert torch.equal(got_k, want_k)
+    for (name, _), g, w in zip(model.named_parameters(), got, want):
         g, w = g.numpy(), w.numpy()
         assert np.isfinite(g).all()
         assert np.abs(g - w).max() <= 1e-6 * max(np.abs(w).max(), 1e-3), name
@@ -443,10 +546,11 @@ def test_autograd_functions_leave_inputs_without_grad(kernel_route):
     x = torch.rand(3, 2, 8, 8)
     with torch.no_grad():
         k = apply_kernel(model, x, x, True, False)
-    assert k.grad_fn is None and kernel_route == {"box": 7, "relu": 5}
+    assert k.grad_fn is None and kernel_route == SMALL_RESNET_LAUNCHES
     k = apply_kernel(_small_resnet(learnable=True).requires_grad_(False), x,
                      x, True, False)
-    assert k.grad_fn is None and kernel_route == {"box": 14, "relu": 10}
+    assert k.grad_fn is None and kernel_route == {
+        name: 2 * n for name, n in SMALL_RESNET_LAUNCHES.items()}
 
 
 RESNETS = ["mnist_as_tf", "mnist_as_tf_mini", "cifar10",
@@ -477,16 +581,18 @@ def test_apply_kernel_reference_equals_apply_kernel_on_cpu(name, diag):
 
 
 def test_launch_formula_matches_counted_launches(kernel_route):
-    """chip_smoke.py's per-tile launch formula, read off the model's
-    Conv2d and ReLU modules, against the launches counted on a
-    mnist_as_tf tile through the CUDA route (stubbed), on a masked pair
-    tile and on a diagonal batch of one set (no ReLU launch)."""
+    """chip_smoke.py's per-tile launch formula, read off the model tree
+    with the fusion rules, against the launches counted on a mnist_as_tf
+    tile through the CUDA route (stubbed), on a masked pair tile (the
+    fused walk) and on a diagonal batch of one set (one box filter per
+    Conv2d, no ReLU launch)."""
     model = configs.load("mnist_as_tf").initial_model
-    assert chip_smoke.layer_launches(model) == (36, 31)
+    want = {"box": 36, "prologue": 28, "epilogue": 15, "relu": 3}
+    assert chip_smoke.layer_launches(model) == dict(want, adds=0)
     x = torch.rand(2, 1, 28, 28)
     with torch.no_grad():
         apply_kernel(model, x, x[:1], False, False, torch.tensor([[False],
                                                                   [True]]))
-        assert kernel_route == {"box": 36, "relu": 31}
+        assert kernel_route == want
         apply_kernel(model, x, x, True, True)
-    assert kernel_route == {"box": 72, "relu": 31}
+    assert kernel_route == dict(want, box=72)
