@@ -28,7 +28,9 @@
 // (cnn_gp_tpu_torch/ops/layer.py::conv_layer_reference: relu_transform_
 // reference, conv_maps_reference, then skip + out) operation for
 // operation.  The prologue runs the ReLU's device math of csrc/arccos.cuh,
-// the same instructions as the standalone ReLU kernel; the box sum adds
+// the same instructions as the standalone ReLU kernel, and in the "fast"
+// form reads the same factor table: the launch fills it (the factors of
+// every xx and yy value, once) before its first plane; the box sum adds
 // k strided slices along W (a = 0, 1, ...) into a [Wo, H] sum, then k
 // slices of that along H in the same order (a tap in the padding adds
 // +0.0, as F.pad's zeros do), multiplies by the scale, adds the bias and
@@ -44,12 +46,16 @@
 // its 125 MB xy map once, the 125 MB skip once and writes 125 MB (112 us
 // at 3.35 TB/s); the box sum is ~6 operations per element and a uniform
 // window, far below the ridge, so tensor cores have nothing to do here.
-// The ReLU's ~45 rounded FP32 operations and four to six special-function
-// sequences per element (~100 instructions with the IEEE square roots)
+// The ReLU's ~38 rounded FP32 operations and two special-function
+// sequences per element (the IEEE square roots of the sine and of the
+// polynomial; the side maps' rsqrt and sqrt come from the factor table)
 // issue in about as long as the bytes take.  The design:
 //   - a persistent grid (as many blocks as fit on the SMs); a block walks
 //     its share of runs of consecutive planes of the flat plane axis,
-//     each run contiguous in memory;
+//     each run contiguous in memory; with the "fast" ReLU prologue it is a
+//     cooperative launch: the blocks fill shares of the factor table
+//     (csrc/arccos.cuh::fill_factors) while their first bulk copies are in
+//     flight, and wait at one grid-wide barrier before the first plane;
 //   - a ring of kStages stages in dynamic shared memory: one thread
 //     issues each run's input planes and skip planes as one bulk
 //     asynchronous copy each (cp.async.bulk, 1-D TMA, completion on an
@@ -57,19 +63,20 @@
 //     current run; a run's tail that is not a multiple of 16 bytes, and
 //     a run at an address that is not 16-byte aligned (a view), load with
 //     scalar loads in the same kernel;
-//   - the prologue in place on the staged planes, each thread on a fixed
-//     set of pixels across the run's planes, so in the "fast" form a
-//     row factor (rsqrt and sqrt of xx + tiny) is computed once per
-//     distinct row plane of the block's runs and kept in registers; xx
-//     and yy are read through L1 / L2 (0.6 MB at 200 x 200, inside the
-//     50 MB L2), a thread's loads of a plane issued together before its
-//     arithmetic;
+//   - the prologue in place on the staged planes; the ReLU of a fixed
+//     geometry takes the run's planes as one flat range, kThreads values
+//     at a time, four a thread in flight (relu_run: no thread idles on
+//     14 x 14 planes, and the warps of 28 x 28 runs share evenly); in the
+//     "fast" form each value reads its row and column factors from the
+//     table (2.5 MB at 200 x 200 28 x 28, inside the 50 MB L2), in the
+//     "reference" form xx and yy; a thread's loads are issued together
+//     before its arithmetic;
 //   - the W pass into a [Wo, H] buffer, the H pass, the scale, the bias
 //     and the skip, stored coalesced;
 //   - the geometries of the ResNet configs (28/14/7 and 32/16/8 maps,
 //     k 1, 3, 4, 7, 8, stride 1 and 2, "same" or 0 padding) as template
-//     parameters, so the index arithmetic is by constants and the
-//     "fast" ReLU's row factors are kept in registers; every other
+//     parameters, so the index arithmetic is by constants and a
+//     thread's pixel loop unrolls; every other
 //     geometry takes the same kernel with run-time indices by
 //     multiply-high divisions (csrc/fast_div.cuh).  On an H100 each
 //     fixed geometry's launch takes 0.55-0.82 of the run-time kernel's
@@ -78,7 +85,8 @@
 // about 80 x 80, 60 x 60 with a skip; no config uses one) takes the
 // unstaged kernel: one
 // thread per output element, its prologue applied to each tap it reads
-// from global memory, the same bits.
+// from global memory (from the same factor table, filled the same way), the
+// same bits.
 
 #include <climits>
 #include <cstdint>
@@ -87,6 +95,7 @@
 
 #include "arccos.cuh"
 #include "fast_div.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -119,6 +128,10 @@ struct Layer {
   const float* xx;       // the ReLU prologue: pre-ReLU [bx, W, H]
   const float* yy;       // and [bz, W, H], mask [bx, bz] bytes or null
   const uint8_t* mask;
+  RowFactor* table;      // the "fast" form's factor table, else null
+  unsigned nx;           // xx and yy values whose factors fill it
+  unsigned ny;           // (ny 0: yy is xx)
+  unsigned y_off;        // yy's first entry (0 when yy is xx)
   unsigned bz;
   FastDiv by_bz;
   int form;              // ReluForm
@@ -252,14 +265,70 @@ __device__ __forceinline__ void issue(const Layer& L, const Shape& sh,
   if (bs != 0) bulk_load(stage + sh.in_floats, skip, bs, bar);
 }
 
+// The ReLU prologue of a run of n planes of a fixed N x N geometry, the
+// first `first` of map 0, in place on the staged planes xs (the first
+// bulk_in values staged, the rest read from src): the run's planes as one
+// flat range of n * N * N values, kThreads at a time (so no thread idles
+// where a plane has fewer pixels than the block has threads, and the
+// block's warps share the work evenly), four values a thread in flight:
+// each value's loads (its row and column factors from the table, "fast";
+// or xx and yy in their .r, "reference"; xx alone when masked), then
+// each value's ReLU.
+template <int N>
+__device__ __forceinline__ void relu_run(const Layer& L, unsigned first,
+                                         int n, float* xs, const float* src,
+                                         int bulk_in, int t) {
+  constexpr int kIn = N * N;
+  constexpr int kBatch = 4;
+  const int total = n * kIn;
+  const bool fast = L.form == kReluFast;
+  for (int b0 = t; b0 < total; b0 += kBatch * kThreads) {
+    float vin[kBatch];
+    RowFactor fx[kBatch], fy[kBatch];
+    bool masked[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int e = b0 + u * kThreads;
+      if (e < total) {
+        const int pl = e / kIn, p = e - pl * kIn;
+        const unsigned q = first + pl;
+        const unsigned i = fast_div(q, L.by_bz), j = q - i * L.bz;
+        masked[u] = L.mask != nullptr && L.mask[q] != 0;
+        vin[u] = e < bulk_in ? xs[e] : src[e];
+        if (!masked[u] && fast) {
+          fx[u] = L.table[i * kIn + p];
+          fy[u] = L.table[L.y_off + j * kIn + p];
+        } else {
+          fx[u].r = __ldg(L.xx + i * kIn + p);
+          fy[u].r = masked[u] ? 0.0f : __ldg(L.yy + j * kIn + p);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int e = b0 + u * kThreads;
+      if (e < total) {
+        if (masked[u]) {
+          xs[e] = __fmul_rn(fx[u].r, 0.5f);
+        } else if (fast) {
+          xs[e] = relu_factored(vin[u], fx[u], fy[u], L.exact);
+        } else {
+          xs[e] = relu_reference(vin[u], fx[u].r, fy[u].r, L.exact);
+        }
+      }
+    }
+  }
+}
+
 template <int N, int K, int STR, int LO, int NO>
 __global__ void __launch_bounds__(kThreads, kMinBlocksPerSM)
 box_layer_staged(const __grid_constant__ Layer L,
                  const __grid_constant__ Shape sh, unsigned total_runs) {
   constexpr bool kFixed = N > 0;
-  // a fixed geometry's row factors per thread: one per pixel slot
+  // a fixed geometry's pixels per thread and plane, unrolled; its ReLU
+  // prologue takes relu_run
   constexpr int kSlots = kFixed ? (N * N + kThreads - 1) / kThreads : 0;
-  constexpr bool kCache = kFixed && kSlots <= 4;
+  constexpr bool kUnroll = kFixed && kSlots <= 4;
   const int W = kFixed ? N : sh.W, H = kFixed ? N : sh.H;
   const int Wo = kFixed ? NO : sh.Wo, Ho = kFixed ? NO : sh.Ho;
   const int k = kFixed ? K : sh.k, stride = kFixed ? STR : sh.stride;
@@ -284,7 +353,8 @@ box_layer_staged(const __grid_constant__ Layer L,
   }
   __syncthreads();
   // the block's runs: a contiguous share of the run axis, so that
-  // consecutive runs mostly share their row plane (and its factors)
+  // consecutive runs mostly share their row plane (and its row of the
+  // factor table, which stays in L1)
   const unsigned share = (total_runs + gridDim.x - 1) / gridDim.x;
   const unsigned r0 = blockIdx.x * share;
   const unsigned r_end = r0 + share < total_runs ? r0 + share : total_runs;
@@ -295,19 +365,19 @@ box_layer_staged(const __grid_constant__ Layer L,
               &bars[s]);
     }
   }
+  // the "fast" ReLU prologue's factor table, while the copies fly (every
+  // block, before any returns: a cooperative launch)
+  if (L.table != nullptr) fill_factors(L.xx, L.nx, L.yy, L.ny, L.table);
 
-  // The prologue's thread layout: a thread keeps its pixels across the
-  // run's planes (lanes of planes side by side when a plane has fewer
-  // pixels than the block has threads).
+  // The prologue's thread layout (other than relu_run's): a thread keeps
+  // its pixels across the run's planes (lanes of planes side by side when
+  // a plane has fewer pixels than the block has threads).
   const bool wide = in_size >= kThreads;
   const int lanes = wide ? 1 : kThreads / in_size;
   const int lane = wide ? 0 : static_cast<int>(
       divide<kFixed ? N * N : 0>(t, sh.by_in));
   const int p0 = t - lane * in_size;
   const int step = wide ? kThreads : in_size;
-
-  RowFactor cached[kCache ? kSlots : 1];
-  unsigned cached_row = UINT_MAX;
 
   for (unsigned it = 0;; ++it) {
     const unsigned r = r0 + it;
@@ -324,7 +394,14 @@ box_layer_staged(const __grid_constant__ Layer L,
     const int bulk_in = static_cast<int>(bulk_bytes(src, n * in_size) / 4);
 
     // 1. the prologue, and the loads that the bulk copy left out
-    if (run.m.prologue != kAsIs || bulk_in < n * in_size) {
+    bool done = false;
+    if constexpr (kUnroll) {
+      if (run.m.prologue == kRelu) {
+        relu_run<N>(L, run.first, n, xs, src, bulk_in, t);
+        done = true;
+      }
+    }
+    if (!done && (run.m.prologue != kAsIs || bulk_in < n * in_size)) {
       for (int pl = lane; lane < lanes && pl < n; pl += lanes) {
         const unsigned q = run.first + pl;
         float* const plane = xs + pl * in_size;
@@ -335,55 +412,14 @@ box_layer_staged(const __grid_constant__ Layer L,
           i = fast_div(q, L.by_bz);
           j = q - i * L.bz;
           masked = L.mask != nullptr && L.mask[q] != 0;
-          if constexpr (kCache) {
-            if (L.form == kReluFast && i != cached_row) {
-              cached_row = i;
-#pragma unroll
-              for (int u = 0; u < kSlots; ++u) {
-                const int p = p0 + u * step;
-                if (p < in_size)
-                  cached[u] = row_factor(__ldg(L.xx + i * in_size + p));
-              }
-            }
-            // every slot's loads first, so that they are in flight
-            // together, then every slot's ReLU
-            const float* const xrow = L.xx + i * in_size;
-            const float* const yrow = L.yy + j * in_size;
-            const bool need_x = masked || L.form != kReluFast;
-            float vin[kSlots], cx[kSlots], cy[kSlots];
-#pragma unroll
-            for (int u = 0; u < kSlots; ++u) {
-              const int p = p0 + u * step;
-              if (p < in_size) {
-                vin[u] = pl * in_size + p < bulk_in ? plane[p] : gplane[p];
-                cx[u] = need_x ? __ldg(xrow + p) : 0.0f;
-                cy[u] = masked ? 0.0f : __ldg(yrow + p);
-              }
-            }
-#pragma unroll
-            for (int u = 0; u < kSlots; ++u) {
-              const int p = p0 + u * step;
-              if (p < in_size) {
-                if (masked) {
-                  plane[p] = __fmul_rn(cx[u], 0.5f);
-                } else if (L.form == kReluFast) {
-                  plane[p] = relu_factored(vin[u], cached[u],
-                                           row_factor(cy[u]), L.exact);
-                } else {
-                  plane[p] = relu_reference(vin[u], cx[u], cy[u], L.exact);
-                }
-              }
-            }
-            continue;
-          }
         }
         // a run-time geometry, or a map without the ReLU: element by
         // element
 #pragma unroll
-        for (int u = 0; u < (kCache ? kSlots : 1); ++u) {
+        for (int u = 0; u < (kUnroll ? kSlots : 1); ++u) {
           // a fixed geometry unrolls the slots; otherwise one loop
           for (int p = p0 + u * step; p < in_size;
-               p += (kCache ? in_size : step)) {
+               p += (kUnroll ? in_size : step)) {
             const int e = pl * in_size + p;
             float v = e < bulk_in ? plane[p] : gplane[p];
             if (run.m.prologue == kHalf) {
@@ -392,12 +428,13 @@ box_layer_staged(const __grid_constant__ Layer L,
               const float* const xrow = L.xx + i * in_size;
               if (masked) {
                 v = __fmul_rn(__ldg(xrow + p), 0.5f);
+              } else if (L.form == kReluFast) {
+                v = relu_factored(v, L.table[i * in_size + p],
+                                  L.table[L.y_off + j * in_size + p],
+                                  L.exact);
               } else {
-                const float cy = __ldg(L.yy + j * in_size + p);
-                v = L.form == kReluFast
-                    ? relu_factored(v, row_factor(__ldg(xrow + p)),
-                                    row_factor(cy), L.exact)
-                    : relu_reference(v, __ldg(xrow + p), cy, L.exact);
+                v = relu_reference(v, __ldg(xrow + p),
+                                   __ldg(L.yy + j * in_size + p), L.exact);
               }
             }
             plane[p] = v;
@@ -468,18 +505,20 @@ box_layer_staged(const __grid_constant__ Layer L,
   }
 }
 
-// The prologue's map of one input value: plane q of map m, pixel p.
+// The prologue's map of one input value v at pixel p of a plane of map m
+// (for the ReLU: the plane of pair (i, j), masked or not).  Indices are
+// 32-bit: the host refuses 2^31 elements or more.
 __device__ __forceinline__ float prologue_at(const Layer& L, const Map& m,
-                                             unsigned q, int p, int in_size,
-                                             float v) {
+                                             unsigned i, unsigned j,
+                                             bool masked, unsigned p,
+                                             unsigned in_size, float v) {
   if (m.prologue == kHalf) return __fmul_rn(v, 0.5f);
   if (m.prologue != kRelu) return v;
-  const unsigned i = fast_div(q, L.by_bz), j = q - i * L.bz;
-  const float cx = L.xx[static_cast<size_t>(i) * in_size + p];
-  if (L.mask != nullptr && L.mask[q]) return __fmul_rn(cx, 0.5f);
-  const float cy = L.yy[static_cast<size_t>(j) * in_size + p];
-  return L.form == kReluFast ? relu_fast(v, cx, cy, L.exact)
-                             : relu_reference(v, cx, cy, L.exact);
+  const unsigned x = i * in_size + p, y = j * in_size + p;
+  if (masked) return __fmul_rn(L.xx[x], 0.5f);
+  return L.form == kReluFast
+      ? relu_factored(v, L.table[x], L.table[L.y_off + y], L.exact)
+      : relu_reference(v, L.xx[x], L.yy[y], L.exact);
 }
 
 // The unstaged kernel: one thread per output element, the prologue on
@@ -487,6 +526,7 @@ __device__ __forceinline__ float prologue_at(const Layer& L, const Map& m,
 __global__ void __launch_bounds__(kThreads)
 box_layer_unstaged(const __grid_constant__ Layer L,
                    const __grid_constant__ Shape sh, unsigned total) {
+  if (L.table != nullptr) fill_factors(L.xx, L.nx, L.yy, L.ny, L.table);
   float scale = L.scale, bias = L.bias;
   if (L.affine) {
     if (L.scale_p != nullptr) scale = *L.scale_p;
@@ -512,6 +552,14 @@ box_layer_unstaged(const __grid_constant__ Layer L,
     }
     const Map m = pick(L, f);
     const float* xp = m.x + static_cast<size_t>(plane) * in_size;
+    // the ReLU prologue's pair of this plane, once per output
+    unsigned i = 0, j = 0;
+    bool masked = false;
+    if (m.prologue == kRelu) {
+      i = fast_div(plane, L.by_bz);
+      j = plane - i * L.bz;
+      masked = L.mask != nullptr && L.mask[plane] != 0;
+    }
     const int w0 = o * sh.stride - sh.lo, h0 = q * sh.stride - sh.lo;
     float sum = 0.0f;
     for (int c = 0; c < sh.k; ++c) {
@@ -521,7 +569,8 @@ box_layer_unstaged(const __grid_constant__ Layer L,
         for (int a = 0; a < sh.k; ++a) {
           const int w = w0 + a * sh.dilation;
           const float v = (w >= 0 && w < W)
-              ? prologue_at(L, m, plane, w * H + h, in_size, xp[w * H + h])
+              ? prologue_at(L, m, i, j, masked, w * H + h, in_size,
+                            xp[w * H + h])
               : 0.0f;
           col = a == 0 ? v : __fadd_rn(col, v);
         }
@@ -537,48 +586,22 @@ box_layer_unstaged(const __grid_constant__ Layer L,
 
 // ---- host side ----
 
-// Grid of the persistent kernel for one shared-memory size on one device,
-// cached per instantiation (a few sizes and devices).
-template <int N, int K, int STR, int LO, int NO>
-int staged_grid(int smem, int device, int* blocks) {
-  struct Entry {
-    int device;
-    int smem;
-    int blocks;
-  };
-  static Entry cache[8];
-  static int used = 0;
-  for (int e = 0; e < used; ++e) {
-    if (cache[e].device == device && cache[e].smem == smem) {
-      *blocks = cache[e].blocks;
-      return 0;
-    }
-  }
-  auto kernel = box_layer_staged<N, K, STR, LO, NO>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxStagedBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int per_sm = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                               device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  *blocks = per_sm * sms;
-  if (used < 8) cache[used++] = Entry{device, smem, *blocks};
-  return 0;
-}
-
 template <int N, int K, int STR, int LO, int NO>
 int launch_staged(const Layer& L, const Shape& sh, unsigned total_runs,
                   int smem, int device, cudaStream_t st) {
+  const void* kernel =
+      reinterpret_cast<const void*>(&box_layer_staged<N, K, STR, LO, NO>);
   int blocks = 0;
-  const int err = staged_grid<N, K, STR, LO, NO>(smem, device, &blocks);
+  const int err = co_resident_blocks(kernel, kThreads, smem, kMaxStagedBytes,
+                                     device, &blocks);
   if (err != 0) return err;
   const unsigned grid = total_runs < static_cast<unsigned>(blocks)
                         ? total_runs : static_cast<unsigned>(blocks);
+  if (L.table != nullptr) {
+    void* args[] = {const_cast<Layer*>(&L), const_cast<Shape*>(&sh),
+                    &total_runs};
+    return launch_cooperative(kernel, grid, kThreads, args, smem, st);
+  }
   box_layer_staged<N, K, STR, LO, NO><<<grid, kThreads, smem, st>>>(
       L, sh, total_runs);
   return static_cast<int>(cudaGetLastError());
@@ -692,11 +715,21 @@ int launch(Layer L, int W, int H, int Wo, int Ho, int k, int stride, int lo,
     return launch_staged<0, 0, 0, 0, 0>(L, sh, total_runs, plan.smem,
                                         device, st);
   }
-  const long long total = planes * out_size;
-  const unsigned blocks =
-      static_cast<unsigned>((total + kThreads - 1) / kThreads);
-  box_layer_unstaged<<<blocks, kThreads, 0, st>>>(
-      L, sh, static_cast<unsigned>(total));
+  unsigned total = static_cast<unsigned>(planes * out_size);
+  unsigned blocks = (total + kThreads - 1) / kThreads;
+  if (L.table != nullptr) {
+    // a grid that is resident at once walks the outputs
+    const void* kernel = reinterpret_cast<const void*>(&box_layer_unstaged);
+    int resident = 0;
+    const int e = co_resident_blocks(kernel, kThreads, 0, 0, device,
+                                     &resident);
+    if (e != 0) return e;
+    if (blocks > static_cast<unsigned>(resident))
+      blocks = static_cast<unsigned>(resident);
+    void* args[] = {&L, const_cast<Shape*>(&sh), &total};
+    return launch_cooperative(kernel, blocks, kThreads, args, 0, st);
+  }
+  box_layer_unstaged<<<blocks, kThreads, 0, st>>>(L, sh, total);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -719,9 +752,14 @@ extern "C" {
 // `affine` the scale and the bias, then, when s_f is not null, the skip
 // s_f [p_f, Wo, Ho] added.  scale_p / bias_p, when not null, point at the
 // float32 scale / bias on the card and take the place of scale / bias.
-// `runtime_geometry` takes the kernel with run-time indices even where a
-// fixed geometry's instantiation exists (to time one against the other).
-// Does not synchronise and allocates nothing.
+// table: the "fast" ReLU prologue's factor table (float32 (r, s) pairs of
+// every xx and yy value, laid out as csrc/arccos.cuh::factor_y_offset
+// says; yy is xx when the two pointers and bx, bz agree), which the launch
+// fills and reads; null for any other launch.  A launch with it is
+// cooperative, and the card's refusal of one is returned, not worked
+// round.  `runtime_geometry` takes the kernel with run-time indices even
+// where a fixed geometry's instantiation exists (to time one against the
+// other).  Does not synchronise and allocates nothing.
 int cnn_gp_conv_layer(const float* x0, const float* s0, float* y0,
                       long long p0, int pro0, const float* x1,
                       const float* s1, float* y1, long long p1, int pro1,
@@ -731,11 +769,13 @@ int cnn_gp_conv_layer(const float* x0, const float* s0, float* y0,
                       int exact, int W, int H, int Wo, int Ho, int k,
                       int stride, int lo, int dilation, int affine,
                       float scale, float bias, const float* scale_p,
-                      const float* bias_p, int runtime_geometry, int device,
-                      void* stream) {
+                      const float* bias_p, float* table,
+                      int runtime_geometry, int device, void* stream) {
   const bool relu = pro0 == kRelu || pro1 == kRelu || pro2 == kRelu;
   if (relu && (xx == nullptr || yy == nullptr || bz < 1
                || (form != kReluFast && form != kReluReference)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((relu && form == kReluFast) != (table != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Layer L{};
   L.m0 = map_of(x0, s0, y0, p0, pro0);
@@ -744,6 +784,19 @@ int cnn_gp_conv_layer(const float* x0, const float* s0, float* y0,
   L.xx = xx;
   L.yy = yy;
   L.mask = mask;
+  if (table != nullptr) {
+    // the pair map's planes are bx * bz; the side maps' values bx * W * H
+    // and bz * W * H
+    const long long pair = pro0 == kRelu ? p0 : (pro1 == kRelu ? p1 : p2);
+    const long long s = static_cast<long long>(W) * H, bx = pair / bz;
+    const bool same = xx == yy && bx == bz;
+    if (bx * s + bz * s + 3 > INT_MAX)
+      return static_cast<int>(cudaErrorInvalidValue);
+    L.table = reinterpret_cast<RowFactor*>(table);
+    L.nx = static_cast<unsigned>(bx * s);
+    L.ny = same ? 0u : static_cast<unsigned>(bz * s);
+    L.y_off = same ? 0u : factor_y_offset(L.nx);
+  }
   L.bz = static_cast<unsigned>(bz < 1 ? 1 : bz);
   L.by_bz = make_fast_div(L.bz);
   L.form = form;

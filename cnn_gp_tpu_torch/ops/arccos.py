@@ -15,7 +15,11 @@ The plain version is ``relu_transform_reference`` (``relu_xy_reference``
 for the xy' map alone).  On the card the xy' map is one hand-written CUDA
 kernel, ``csrc/arccos.cu`` (both ``relu_impl`` forms, both ``acos_impl``
 versions, pair and diagonal modes, with or without the mask), within 1e-6
-of max|xy'| of the plain version; xx' and yy' stay torch multiplies.
+of max|xy'| of the plain version; xx' and yy' stay torch multiplies.  In
+the "fast" form the side maps' factors (``relu_factors``: rsqrt and sqrt
+of xx + tiny and yy + tiny) are computed once per launch into a factor
+table that the wrapper allocates (``factor_table``) and the kernel fills
+and reads, inside the same launch.
 ``relu_transform`` runs the plain version for CPU tensors and launches
 the kernel for CUDA tensors, or raises (a diagonal block of one set,
 whose xy' is xx', launches nothing).  A ReLU whose every consumer is a
@@ -43,8 +47,9 @@ from ..kernel_patch import KernelPatch
 from . import cuda_lib
 
 __all__ = ["relu_transform", "relu_transform_reference", "relu_xy_reference",
-           "acos_f32", "F32_TINY", "check_method", "METHODS", "build",
-           "launches", "copies"]
+           "relu_factors", "factor_table", "factor_table_entries",
+           "factor_table_reference", "acos_f32", "F32_TINY", "check_method",
+           "METHODS", "build", "launches", "copies"]
 
 launches = 0   # ReLU kernel launches
 copies = 0     # inputs copied to make them contiguous before a launch
@@ -100,13 +105,22 @@ def _xy_update(xy, xx_yy, acos_fn):
     return (sin_theta + (math.pi - theta) * xy) * (0.5 / math.pi)
 
 
+def relu_factors(v: torch.Tensor):
+    """The "fast" form's factors of side-map values ``v``: ``(rsqrt(v +
+    tiny), sqrt(v + tiny))``, computed once per row or column of the pair
+    grid, not per pair element.  The kernels' factor table holds the same
+    pairs (``factor_table_reference``)."""
+    a = v + F32_TINY
+    return torch.rsqrt(a), torch.sqrt(a)
+
+
 def _xy_update_factored(xy, xx, yy, acos_fn):
     """Same map with the per-row/per-column rsqrt and sqrt hoisted out of
     the pair grid; sin(theta) is recovered from cos(theta)."""
-    r_xx = torch.rsqrt(xx + F32_TINY)[:, None]
-    r_yy = torch.rsqrt(yy + F32_TINY)[None, :]
-    s_xx = torch.sqrt(xx + F32_TINY)[:, None]
-    s_yy = torch.sqrt(yy + F32_TINY)[None, :]
+    r_xx, s_xx = relu_factors(xx)
+    r_yy, s_yy = relu_factors(yy)
+    r_xx, s_xx = r_xx[:, None], s_xx[:, None]
+    r_yy, s_yy = r_yy[None, :], s_yy[None, :]
     # (r_xx * r_yy) first: the factor is symmetric under (i, j) swap, so
     # Gram tiles stay exactly symmetric (a chained xy*r_xx*r_yy would
     # associate differently across the diagonal)
@@ -186,6 +200,43 @@ def relu_transform(kp: KernelPatch) -> KernelPatch:
 PAIR_FAST, PAIR_REFERENCE, DIAGONAL = 0, 1, 2
 
 
+def _one_side(xx: torch.Tensor, yy: torch.Tensor) -> bool:
+    """yy is xx (a same block): one set of factors serves both sides."""
+    return xx.data_ptr() == yy.data_ptr() and xx.shape == yy.shape
+
+
+def factor_table_entries(nx: int, ny: int, one_side: bool) -> int:
+    """(r, s) entries of the factor table of nx xx values and ny yy
+    values: xx's first, then yy's from the first multiple of 4 at or after
+    nx (16-byte aligned), or xx's alone when yy is xx
+    (``csrc/arccos.cuh::factor_y_offset``)."""
+    return nx if one_side else ((nx + 3) & ~3) + ny
+
+
+def factor_table(xx: torch.Tensor, yy: torch.Tensor) -> torch.Tensor:
+    """An empty float32 [entries, 2] factor table on ``xx``'s device, from
+    torch's caching allocator, for a "fast" launch on the side maps xx
+    and yy; the launch fills it."""
+    n = factor_table_entries(xx.numel(), yy.numel(), _one_side(xx, yy))
+    return torch.empty((n, 2), dtype=torch.float32, device=xx.device)
+
+
+def factor_table_reference(xx: torch.Tensor,
+                           yy: torch.Tensor) -> torch.Tensor:
+    """The factor table's contents in plain torch (``relu_factors`` of
+    every xx value, then of every yy value unless yy is xx); the padding
+    between the two, which no launch writes, is zero here."""
+    out = torch.zeros(factor_table_entries(xx.numel(), yy.numel(),
+                                           _one_side(xx, yy)), 2,
+                      dtype=torch.float32, device=xx.device)
+    r, s = relu_factors(xx.reshape(-1))
+    out[:xx.numel(), 0], out[:xx.numel(), 1] = r, s
+    if not _one_side(xx, yy):
+        r, s = relu_factors(yy.reshape(-1))
+        out[-yy.numel():, 0], out[-yy.numel():, 1] = r, s
+    return out
+
+
 def build() -> float:
     """Build and load the kernel libraries (``cuda_lib.build``) and bind
     this module's entry point.  Returns the seconds spent."""
@@ -195,8 +246,8 @@ def build() -> float:
     seconds = cuda_lib.build()
     lib = cuda_lib.library("arccos")
     fn = lib.cnn_gp_relu
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.cnn_gp_relu_error_string.argtypes = [ctypes.c_int]
     lib.cnn_gp_relu_error_string.restype = ctypes.c_char_p
@@ -278,10 +329,30 @@ def _contiguous(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous()
 
 
+def _check_table(table: Optional[torch.Tensor], xx: torch.Tensor,
+                 yy: torch.Tensor) -> torch.Tensor:
+    """The factor table of a "fast" launch on (contiguous) xx and yy: a
+    new one, or ``table`` if it has the shape, type, device and layout
+    that the kernel writes."""
+    if table is None:
+        return factor_table(xx, yy)
+    want = (factor_table_entries(xx.numel(), yy.numel(), _one_side(xx, yy)),
+            2)
+    if (table.shape != want or table.dtype != torch.float32
+            or table.device != xx.device or not table.is_contiguous()):
+        raise ValueError(f"a factor table must be contiguous float32 {want} "
+                         f"on {xx.device}, got {table.dtype} "
+                         f"{tuple(table.shape)} on {table.device}")
+    return table
+
+
 def _launch(xy: torch.Tensor, xx: torch.Tensor, yy: torch.Tensor,
             mask: Optional[torch.Tensor], mode: int, exact: int,
-            stream) -> torch.Tensor:
-    """One kernel launch on ``stream``; returns the new xy' map."""
+            stream, table: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One kernel launch on ``stream``; returns the new xy' map.  A
+    ``PAIR_FAST`` launch fills and reads a factor table: ``table`` when it
+    is given (a ``factor_table`` of these side maps, left filled for a
+    caller to read), else a new one."""
     global launches
     for name, t in (("xy", xy), ("xx", xx), ("yy", yy)):
         if t.dtype != torch.float32:
@@ -314,10 +385,15 @@ def _launch(xy: torch.Tensor, xx: torch.Tensor, yy: torch.Tensor,
         mask = _contiguous(mask)
     out = torch.empty(xy.shape, dtype=torch.float32, device=xy.device)
     s = xy.shape[-2] * xy.shape[-1]
+    if mode == PAIR_FAST:
+        table = _check_table(table, xx, yy)
+    elif table is not None:
+        raise ValueError("only a PAIR_FAST launch takes a factor table")
     err = _lib.cnn_gp_relu(
         xy.data_ptr(), xx.data_ptr(), yy.data_ptr(),
         None if mask is None else mask.data_ptr(), out.data_ptr(), b1, b2,
-        s, mode, exact, xy.device.index, stream)
+        s, mode, exact, None if table is None else table.data_ptr(),
+        xy.device.index, stream)
     if err != 0:
         raise RuntimeError(f"ReLU kernel launch failed: cuda error {err} "
                            f"({_lib.error_string(err)})")

@@ -38,7 +38,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from . import cuda_lib
+from . import arccos, cuda_lib
 
 __all__ = ["same_padding", "resolve_padding", "out_size", "box_filter_2d",
            "box_filter_2d_reference", "conv_maps", "conv_maps_reference",
@@ -211,7 +211,7 @@ def build() -> float:
     ptr, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                           ctypes.c_float)
     layer.argtypes = ([ptr, ptr, ptr, i64, i32] * 3 + [ptr] * 3
-                      + [i32] * 12 + [f32] * 2 + [ptr] * 2
+                      + [i32] * 12 + [f32] * 2 + [ptr] * 3
                       + [i32, i32, ptr])
     layer.restype = ctypes.c_int
     plan_fn = lib.cnn_gp_box_filter_plan
@@ -349,7 +349,9 @@ def _launch_layer(geom: Geometry, maps: List[torch.Tensor],
     ``(xx, yy, mask, form, exact)`` for a ``RELU`` prologue (map 0 a
     [bx, bz, W, H] pair map; xx [bx, W, H] and yy [bz, W, H] its
     pre-ReLU side maps; mask [bx, bz] bool or None; form 0 "fast", 1
-    "reference"; exact: acosf) and None otherwise.
+    "reference"; exact: acosf) and None otherwise.  A "fast" ReLU
+    prologue fills and reads a factor table of xx and yy
+    (``arccos.factor_table``, allocated here) inside the launch.
     ``runtime_geometry`` takes the kernel with run-time indices even
     where the geometry has a fixed instantiation (to time the two).
     Returns the new output maps."""
@@ -400,10 +402,12 @@ def _launch_layer(geom: Geometry, maps: List[torch.Tensor],
                              f"got {mask.dtype} {tuple(mask.shape)} on "
                              f"{mask.device}")
         # held until the launch: a copy freed earlier could be reused
-        side = [_contiguous(xx), _contiguous(yy),
-                None if mask is None else _contiguous(mask)]
+        xx, yy = _contiguous(xx), _contiguous(yy)
+        side = [xx, yy, None if mask is None else _contiguous(mask)]
+        table = (arccos.factor_table(xx, yy) if form == arccos.PAIR_FAST
+                 else None)
     else:
-        side, form, exact = [None, None, None], 0, 0
+        side, form, exact, table = [None, None, None], 0, 0, None
     maps = [_contiguous(a) for a in maps]
     outs = [torch.empty(a.shape[:-2] + (wo, ho), dtype=torch.float32,
                         device=device) for a in maps]
@@ -429,7 +433,8 @@ def _launch_layer(geom: Geometry, maps: List[torch.Tensor],
     err = _lib.cnn_gp_conv_layer(
         *slots, *[None if t is None else t.data_ptr() for t in side], bz,
         form, exact, w, h, wo, ho, k, s, lo, d, int(scale is not None),
-        scale_v, bias_v, scale_p, bias_p, int(runtime_geometry),
+        scale_v, bias_v, scale_p, bias_p,
+        None if table is None else table.data_ptr(), int(runtime_geometry),
         device.index, stream)
     if err != 0:
         raise RuntimeError(f"box-filter kernel launch failed: cuda error "

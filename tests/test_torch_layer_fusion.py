@@ -426,14 +426,17 @@ def test_layer_wrapper_passes_pointers_flags_and_shapes(monkeypatch, impl,
     assert args[21:30] == (28, 28, 14, 14, 3, 2, 1, 1, 1)   # affine
     assert args[30] == float(np.float32(2.79 / 9)) != 2.79 / 9
     assert args[31] == float(np.float32(0.1))
-    # the fixed geometry's kernel where there is one; the stream
-    assert args[32:35] == (None, None, 0) and args[36] == 0
+    # the "fast" form's factor table (allocated by the wrapper); the fixed
+    # geometry's kernel where there is one; the stream
+    assert args[32:34] == (None, None)
+    assert (args[34] is None) == (impl == "reference")
+    assert args[35] == 0 and args[37] == 0
     assert [tuple(t.shape) for t in (out.xy, out.xx, out.yy)] == [
         (3, 4, 14, 14), (3, 14, 14), (4, 14, 14)]
     assert all(t.is_contiguous() for t in (out.xy, out.xx, out.yy))
     tbox._launch_layer(tbox.Geometry.of(3, 1, "same", 1), [xx], [tbox.AS_IS],
                        [None], None, 1.0, 0.0, 0, runtime_geometry=True)
-    assert lib.calls[-1][34] == 1                 # the run-time indices
+    assert lib.calls[-1][35] == 1                 # the run-time indices
 
 
 def test_layer_wrapper_same_block_and_no_prologue(monkeypatch):
