@@ -7,9 +7,11 @@ PyTorch counterpart of ``cnn_gp_tpu/fit.py``, with its names:
 The leaves are the model's ``nn.Parameter``s (every ``Mixture.logit``, and
 ``var_weight`` / ``var_bias`` of ``Conv2d(learnable=True)``).  ``fit`` and
 ``fit_large`` return a fitted copy and leave the input model as it was.
-Gradients come from ``torch.autograd`` through ``apply_kernel`` (on the
-card its layer kernels are ``autograd.Function``s whose backward
-differentiates their plain torch versions) under ``settings.grad_safe``; gradients are returned as dicts
+Gradients come from ``torch.autograd`` through ``apply_kernel`` under
+``settings.grad_safe``: on the card its layer kernels are
+``autograd.Function``s whose backward launches hand-written adjoint
+kernels (``csrc/boxfilter_vjp.cu``, ``csrc/arccos_vjp.cu``), so a tile's
+VJP runs no plain version; gradients are returned as dicts
 of float32 arrays keyed as ``convert.leaf_items`` (and ``save_leaves``)
 name the leaves.  Three paths to the negative marginal log-likelihood:
 
@@ -178,9 +180,12 @@ def _tile_vjp_sweep(model, x_all: torch.Tensor, tiles, cotangent,
     each [b, b] tile (ragged at the edges) is recomputed by
     ``apply_kernel`` with the global-index same-example mask where its rows
     and columns overlap, and its weighted cotangent ``cotangent(i0, j0, bi,
-    bj)`` is contracted by one backward pass.  The leaves live in a copy of
-    the model on ``x_all``'s device, so the float32 sums stay there until
-    the end."""
+    bj)`` is contracted by one backward pass.  On the card that pass
+    launches, per ``Conv2d``, the box filter's adjoint kernel (its leaf
+    gradients reduced in the launch) and, per ``ReLU``, the ReLU's adjoint
+    kernel; autograd keeps each layer's inputs only.  The leaves live in a
+    copy of the model on ``x_all``'s device, so the float32 sums stay there
+    until the end."""
     dev_model = copy.deepcopy(model).to(x_all.device)
     items = leaf_items(dev_model)
     params = [p for _, p in items]

@@ -28,6 +28,21 @@ on the same device math (``csrc/arccos.cuh``).  ``launches`` counts this
 kernel's launches; ``copies`` counts inputs that were not contiguous and
 were copied before a launch.
 
+The adjoint of the xy' map (the backward of the ReLU's autograd Function
+and of the box filter's ReLU prologue) has a closed form, with theta and
+sin(theta) computed as the forward computes them in each form:
+
+    d xy'/d xy = (pi - theta) / (2 pi),
+    d xy'/d xx = sqrt(yy / xx) sin(theta) / (4 pi),
+    d xy'/d yy = sqrt(xx / yy) sin(theta) / (4 pi),
+
+a same-example entry (xx / 2) sending half its cotangent to xx.  Its
+plain version is ``relu_xy_vjp_reference``; on the card it is a second
+hand-written kernel, ``csrc/arccos_vjp.cu`` (every mode, with or without
+the mask, the side maps' sums over the pair grid reduced without float
+atomics, so two runs give the same bits); ``vjp_launches`` counts its
+launches.
+
 ``settings.relu_method`` names the JAX package's lowering of the ReLU;
 the port has one, and refuses an unknown name as JAX does
 (``check_method``).
@@ -47,13 +62,16 @@ from ..kernel_patch import KernelPatch
 from . import cuda_lib
 
 __all__ = ["relu_transform", "relu_transform_reference", "relu_xy_reference",
-           "relu_factors", "factor_table", "factor_table_entries",
-           "factor_table_reference", "acos_f32", "F32_TINY", "check_method",
-           "METHODS", "build", "launches", "copies"]
+           "relu_xy_vjp_reference", "relu_factors", "factor_table",
+           "factor_table_entries", "factor_table_reference", "acos_f32",
+           "F32_TINY", "check_method", "METHODS", "build", "launches",
+           "vjp_launches", "copies"]
 
 launches = 0   # ReLU kernel launches
+vjp_launches = 0   # launches of the adjoint kernel
 copies = 0     # inputs copied to make them contiguous before a launch
 _lib = None
+_scratch_sizes = (None, {})   # (the library, its scratch sizes by shape)
 
 F32_TINY = float(np.finfo(np.float32).tiny)
 _HALF_PI = math.pi / 2.0
@@ -163,6 +181,71 @@ def relu_xy_reference(xy: torch.Tensor, xx: torch.Tensor,
     return out
 
 
+def _adjoint(xy, xx, yy, acos_fn, fast: bool):
+    """(xy', d xy'/d xy, d xy'/d xx, d xy'/d yy) elementwise on
+    broadcastable xy, xx, yy, in the "fast" form (``_xy_update_factored``:
+    xx + tiny and yy + tiny under the square roots, sin(theta) from
+    cos(theta)) or the reference form (``_xy_update``: tiny added to xx *
+    yy).  With P the product under the square root, d xy'/d P = sin(theta)
+    / (4 pi sqrt(P)): no term that a clipped cosine would make infinite."""
+    if fast:
+        r_xx, s_xx = relu_factors(xx)
+        r_yy, s_yy = relu_factors(yy)
+        cos_theta = torch.clamp(xy * (r_xx * r_yy), -1.0, 1.0)
+        sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta,
+                                           min=0.0))
+        pi_minus_theta = acos_fn(-cos_theta)
+        out = ((s_xx * s_yy) * sin_theta + pi_minus_theta * xy) * (
+            0.5 / math.pi)
+        q = sin_theta * (0.25 / math.pi)
+        return (out, pi_minus_theta * (0.5 / math.pi), (s_yy * r_xx) * q,
+                (s_xx * r_yy) * q)
+    xx_yy = xx * yy + F32_TINY
+    r = torch.rsqrt(xx_yy)
+    cos_theta = torch.clamp(xy * r, -1.0, 1.0)
+    sin_theta = torch.sqrt(torch.clamp(xx_yy - xy * xy, min=0.0))
+    pi_minus_theta = math.pi - acos_fn(cos_theta)
+    out = (sin_theta + pi_minus_theta * xy) * (0.5 / math.pi)
+    d_p = (sin_theta * (r * r)) * (0.25 / math.pi)
+    return out, pi_minus_theta * (0.5 / math.pi), yy * d_p, xx * d_p
+
+
+def relu_xy_vjp_reference(g: torch.Tensor, xy: torch.Tensor,
+                          xx: torch.Tensor, yy: torch.Tensor,
+                          mask: Optional[torch.Tensor], diag: bool):
+    """The VJP of ``relu_xy_reference(xy, xx, yy, mask, diag)`` against
+    the cotangent ``g`` of xy', in closed form (``_adjoint``) under the
+    ``settings.relu_impl`` and ``acos_impl`` of the forward: ``(g_xy,
+    g_xx, g_yy)``.  A same-example entry (its xy' is xx / 2) sends half its
+    cotangent to xx and none to xy or yy.  Pair mode sums over the pair
+    grid: g_xx[i] over j, g_yy[j] over i; when yy is xx (a same block)
+    both sums land in g_xx and g_yy is None.  The diagonal mode (the
+    reference form) is elementwise.  Autograd of ``relu_xy_reference``
+    agrees away from |cos(theta)| = 1, where its sqrt's and acos's
+    infinite slopes cancel only in exact arithmetic (or make NaN at a
+    clipped cosine)."""
+    from .. import settings
+    acos_fn = acos_f32 if settings.acos_impl == "poly" else torch.acos
+    if diag:
+        _, d_xy, d_xx, d_yy = _adjoint(xy, xx, yy, acos_fn, False)
+        return g * d_xy, g * d_xx, g * d_yy
+    if mask is not None:
+        # the forward's neutral input for same-example entries
+        xy = torch.where(mask[:, :, None, None], 0.0, xy)
+    _, d_xy, d_xx, d_yy = _adjoint(xy, xx[:, None], yy[None, :], acos_fn,
+                                   settings.relu_impl == "fast")
+    g_xy, g_xx, g_yy = g * d_xy, g * d_xx, g * d_yy
+    if mask is not None:
+        m = mask[:, :, None, None]
+        g_xy = torch.where(m, 0.0, g_xy)
+        g_xx = torch.where(m, g * 0.5, g_xx)
+        g_yy = torch.where(m, 0.0, g_yy)
+    g_xx, g_yy = g_xx.sum(1), g_yy.sum(0)
+    if _one_side(xx, yy):
+        return g_xy, g_xx + g_yy, None
+    return g_xy, g_xx, g_yy
+
+
 def _transform(kp: KernelPatch, xy_map) -> KernelPatch:
     """The transform of a patch, with its xy' map from ``xy_map(xy, xx,
     yy, mask, diag)``."""
@@ -251,8 +334,16 @@ def build() -> float:
     fn.restype = ctypes.c_int
     lib.cnn_gp_relu_error_string.argtypes = [ctypes.c_int]
     lib.cnn_gp_relu_error_string.restype = ctypes.c_char_p
+    vjp_lib = cuda_lib.library("arccos_vjp")
+    vjp = vjp_lib.cnn_gp_relu_vjp
+    vjp.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_float, ctypes.c_void_p]
+                    + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    vjp.restype = ctypes.c_int
+    scratch = vjp_lib.cnn_gp_relu_vjp_scratch
+    scratch.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+    scratch.restype = ctypes.c_int
     _lib = types.SimpleNamespace(
-        cnn_gp_relu=fn,
+        cnn_gp_relu=fn, cnn_gp_relu_vjp=vjp, cnn_gp_relu_vjp_scratch=scratch,
         error_string=lambda code: lib.cnn_gp_relu_error_string(
             code).decode())
     return seconds
@@ -260,13 +351,11 @@ def build() -> float:
 
 def _forms():
     """The settings the kernel and its plain version read, as they stand:
-    (mode of a pair launch, acosf instead of the polynomial, the settings
-    for a backward pass to restore)."""
+    (mode of a pair launch, acosf instead of the polynomial, whether the
+    forward ran under ``settings.grad_safe``, which a backward checks)."""
     from .. import settings
-    saved = dict(relu_impl=settings.relu_impl, acos_impl=settings.acos_impl,
-                 grad_safe=settings.grad_safe)
     mode = PAIR_FAST if settings.relu_impl == "fast" else PAIR_REFERENCE
-    return mode, int(settings.acos_impl != "poly"), saved
+    return mode, int(settings.acos_impl != "poly"), settings.grad_safe
 
 
 def _on_card(xy: torch.Tensor, xx: torch.Tensor, yy: torch.Tensor,
@@ -283,42 +372,166 @@ def _on_card(xy: torch.Tensor, xx: torch.Tensor, yy: torch.Tensor,
 def _route(xy: torch.Tensor, xx: torch.Tensor, yy: torch.Tensor,
            mask: Optional[torch.Tensor], diag: bool, stream) -> torch.Tensor:
     """The launch, through ``_ReluXY`` where a gradient is wanted."""
-    mode, exact, saved = _forms()
+    mode, exact, grad_safe = _forms()
     mode = DIAGONAL if diag else mode
     if torch.is_grad_enabled() and (xy.requires_grad or xx.requires_grad
                                     or yy.requires_grad):
-        return _ReluXY.apply(mode, exact, saved, mask, stream, xy, xx, yy)
+        return _ReluXY.apply(mode, exact, grad_safe, mask, stream, xy, xx,
+                             yy)
     return _launch(xy, xx, yy, mask, mode, exact, stream)
 
 
 class _ReluXY(torch.autograd.Function):
-    """The kernel as the forward; the backward re-runs
-    ``relu_xy_reference`` on the saved inputs, under the settings of the
-    forward, and returns its gradients, the same as plain autograd's.  (A
-    hand-written backward kernel is ROADMAP Queue 2 item 1, the tile
-    VJP.)"""
+    """The kernel as the forward; the backward one launch of the adjoint
+    kernel (``_launch_vjp``) under the forms of the forward."""
 
     @staticmethod
-    def forward(ctx, mode, exact, saved, mask, stream, xy, xx, yy):
-        ctx.settings = saved
-        ctx.diag = mode == DIAGONAL
+    def forward(ctx, mode, exact, grad_safe, mask, stream, xy, xx, yy):
+        ctx.mode, ctx.exact, ctx.stream = mode, exact, stream
+        ctx.grad_safe = grad_safe
         ctx.save_for_backward(mask, xy, xx, yy)
         return _launch(xy, xx, yy, mask, mode, exact, stream)
 
     @staticmethod
     def backward(ctx, grad):
-        from .. import settings
-        mask, *inputs = ctx.saved_tensors
-        needs = ctx.needs_input_grad[5:]
-        inputs = [t.detach().requires_grad_(need)
-                  for t, need in zip(inputs, needs)]
-        with settings.override(**ctx.settings), torch.enable_grad():
-            out = relu_xy_reference(*inputs, mask, ctx.diag)
-        got = iter(torch.autograd.grad(
-            out, [t for t, need in zip(inputs, needs) if need], grad,
-            allow_unused=True))
-        return (None,) * 5 + tuple(next(got) if need else None
-                                   for need in needs)
+        mask, xy, xx, yy = ctx.saved_tensors
+        check_grad_safe(mask, ctx.grad_safe)
+        g_xy, g_xx, g_yy = _launch_vjp(
+            grad, xy, xx, yy, mask, ctx.mode, ctx.exact, None,
+            ctx.needs_input_grad[5:], None, None, None, ctx.stream)
+        return (None,) * 5 + (g_xy, g_xx, g_yy)
+
+
+def check_grad_safe(mask: Optional[torch.Tensor], grad_safe: bool) -> None:
+    """Refuse the adjoint of a masked pair map whose forward ran without
+    ``settings.grad_safe``: plain autograd's gradient is NaN there (0 *
+    inf at the same-example entries), in both packages."""
+    if mask is not None and not grad_safe:
+        raise ValueError("the ReLU's adjoint of a masked pair map needs "
+                         "settings.grad_safe=True in the forward (without it "
+                         "plain autograd's gradient is NaN)")
+
+
+def _vjp_reference(t, xy, xx, yy, mask, mode, exact, gscale, want, acc_xx,
+                   acc_yy, dot):
+    """What one launch of the adjoint kernel computes, in plain torch
+    (``_launch_vjp``'s arguments, without the stream)."""
+    from .. import settings
+    g = t if gscale is None else t * gscale
+    with settings.override(
+            relu_impl="fast" if mode == PAIR_FAST else "reference",
+            acos_impl="exact" if exact else "poly"):
+        g_xy, g_xx, g_yy = relu_xy_vjp_reference(g, xy, xx, yy, mask,
+                                                 mode == DIAGONAL)
+        if dot is not None:
+            dot += (t * relu_xy_reference(xy, xx, yy, mask,
+                                          mode == DIAGONAL)).sum()
+    if g_yy is None and acc_yy is not None:
+        acc_xx = acc_yy if acc_xx is None else acc_xx + acc_yy
+    if acc_xx is not None:
+        g_xx = acc_xx + g_xx
+    if acc_yy is not None and g_yy is not None:
+        g_yy = acc_yy + g_yy
+    return tuple(v if w else None for v, w in zip((g_xy, g_xx, g_yy), want))
+
+
+def vjp_scratch(b1: int, b2: int, s: int, mode: int, device) -> int:
+    """Floats of scratch that an adjoint launch on a [b1, b2, s] pair map
+    (or b1 rows of a diagonal) reduces its sums through: the side maps'
+    partial sums and the per-block partials of the dot product.  Builds
+    the library; the library's answer is kept per sizes and device."""
+    global _scratch_sizes
+    build()
+    key = (b1, b2, s, mode, torch.device(device).index or 0)
+    if _scratch_sizes[0] is not _lib:
+        _scratch_sizes = (_lib, {})
+    if key not in _scratch_sizes[1]:
+        n = ctypes.c_longlong()
+        err = _lib.cnn_gp_relu_vjp_scratch(*key, ctypes.byref(n))
+        if err != 0:
+            raise RuntimeError(f"ReLU adjoint: cuda error {err} "
+                               f"({_lib.error_string(err)})")
+        _scratch_sizes[1][key] = n.value
+    return _scratch_sizes[1][key]
+
+
+def _launch_vjp(t: torch.Tensor, xy: torch.Tensor, xx: torch.Tensor,
+                yy: torch.Tensor, mask: Optional[torch.Tensor], mode: int,
+                exact: int, gscale, want, acc_xx: Optional[torch.Tensor],
+                acc_yy: Optional[torch.Tensor], dot: Optional[torch.Tensor],
+                stream):
+    """One launch of the adjoint kernel (``csrc/arccos_vjp.cu``) on
+    ``stream``: the xy' map's cotangent is ``t * gscale`` (``gscale`` a
+    float, a float32 0-d tensor, or None for 1); returns ``(g_xy, g_xx,
+    g_yy)`` as ``relu_xy_vjp_reference`` does, each None where ``want``
+    says so, with ``acc_xx`` / ``acc_yy`` (when given) added to the side
+    maps' sums; ``dot`` (a float32 0-d tensor on the card, or None) gets
+    sum(t * xy') added, the part of a ``Conv2d``'s d scale that reads the
+    ReLU's output.  When yy is xx both side sums land in g_xx (and
+    ``acc_yy`` with them), and g_yy is None."""
+    global vjp_launches
+    for name, v in (("t", t), ("xy", xy), ("xx", xx), ("yy", yy)):
+        if v.dtype != torch.float32 or v.device != xy.device:
+            raise ValueError(f"{name} must be float32 on {xy.device}, got "
+                             f"{v.dtype} on {v.device}")
+    if t.shape != xy.shape:
+        raise ValueError(f"the cotangent {tuple(t.shape)} differs from xy "
+                         f"{tuple(xy.shape)}")
+    if mode == DIAGONAL:
+        if mask is not None or dot is not None:
+            raise ValueError("diagonal mode takes no mask and no dot")
+        if not xy.shape == xx.shape == yy.shape:
+            raise ValueError("diagonal mode takes xy, xx, yy of one shape")
+        b1, b2 = xy.shape[0], 1
+    else:
+        b1, b2 = xy.shape[:2]
+        if xx.shape != (b1,) + xy.shape[2:] or yy.shape != (
+                b2,) + xy.shape[2:]:
+            raise ValueError(f"pair mode takes xy [Nx, Ny, W, H], xx [Nx, W,"
+                             f" H], yy [Ny, W, H], got {tuple(xy.shape)}, "
+                             f"{tuple(xx.shape)}, {tuple(yy.shape)}")
+        if mask is not None and (mask.dtype != torch.bool
+                                 or mask.shape != (b1, b2)
+                                 or mask.device != xy.device):
+            raise ValueError(f"mask must be bool [{b1}, {b2}] on "
+                             f"{xy.device}")
+    one_side = mode != DIAGONAL and _one_side(xx, yy)
+    if one_side and acc_yy is not None:
+        acc_xx = acc_yy if acc_xx is None else acc_xx + acc_yy
+        acc_yy = None
+    # one copy of a same block's side map, so the launch sees yy is xx
+    t, xy, xx = (_contiguous(v) for v in (t, xy, xx))
+    yy = xx if one_side else _contiguous(yy)
+    mask = None if mask is None else _contiguous(mask)
+    accs = [None if a is None else _contiguous(a) for a in (acc_xx, acc_yy)]
+    for a, side in zip(accs, (xx, yy)):
+        if a is not None and (a.shape != side.shape
+                              or a.dtype != torch.float32
+                              or a.device != xy.device):
+            raise ValueError("an accumulator takes its side map's shape")
+    s = xy.shape[-2] * xy.shape[-1]
+    want = [bool(want[0]), bool(want[1]),
+            bool(want[2]) and not one_side]
+    outs = [torch.empty(v.shape, dtype=torch.float32, device=xy.device)
+            if w else None for v, w in zip((xy, xx, yy), want)]
+    scratch = torch.empty(vjp_scratch(b1, b2, s, mode, xy.device),
+                          dtype=torch.float32, device=xy.device)
+    from .boxfilter import _operand   # read as the box filter's scale is
+    gscale_v, gscale_p = ((1.0, None) if gscale is None
+                          else _operand(gscale, xy.device))
+
+    def ptr(v):
+        return None if v is None else v.data_ptr()
+    err = _lib.cnn_gp_relu_vjp(
+        t.data_ptr(), xy.data_ptr(), xx.data_ptr(), yy.data_ptr(),
+        ptr(mask), *(ptr(o) for o in outs), *(ptr(a) for a in accs),
+        scratch.data_ptr(), ptr(dot), gscale_v, gscale_p, b1, b2, s, mode,
+        exact, xy.device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"ReLU adjoint launch failed: cuda error {err} "
+                           f"({_lib.error_string(err)})")
+    vjp_launches += 1
+    return tuple(outs)
 
 
 def _contiguous(t: torch.Tensor) -> torch.Tensor:
@@ -380,7 +593,9 @@ def _launch(xy: torch.Tensor, xx: torch.Tensor, yy: torch.Tensor,
             raise ValueError(f"mask must be bool [{b1}, {b2}] on "
                              f"{xy.device}, got {mask.dtype} "
                              f"{tuple(mask.shape)} on {mask.device}")
-    xy, xx, yy = _contiguous(xy), _contiguous(xx), _contiguous(yy)
+    one_side = mode != DIAGONAL and _one_side(xx, yy)
+    xy, xx = _contiguous(xy), _contiguous(xx)
+    yy = xx if one_side else _contiguous(yy)
     if mask is not None:
         mask = _contiguous(mask)
     out = torch.empty(xy.shape, dtype=torch.float32, device=xy.device)

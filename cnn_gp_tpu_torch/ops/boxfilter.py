@@ -20,6 +20,15 @@ kernel; ``prologue_launches`` and ``epilogue_launches`` count those with
 the ReLU prologue and with the skip epilogue; ``copies`` counts inputs
 that were not contiguous and were copied before a launch.
 
+The adjoint (the backward of ``conv_maps`` and of the fused layer) is a
+second hand-written kernel, ``csrc/boxfilter_vjp.cu``: per axis the
+transposed shift-sum (each output's cotangent sent back to the k input
+pixels its window read, the padding dropped), times the scale, with the
+leaf gradients d scale = sum <box^T(g), a> and d bias = sum g reduced in
+the same launch.  Its plain version is ``box_filter_2d_vjp_reference``
+per map and ``_vjp_reference`` for a launch's maps, scale and leaf sums;
+``vjp_launches`` counts its launches.
+
 ``settings.conv_method`` names the JAX package's lowering of the box
 filter; the port has one lowering, which computes each of them, and
 refuses an unknown name as JAX does (``check_method``).
@@ -42,8 +51,10 @@ from . import arccos, cuda_lib
 
 __all__ = ["same_padding", "resolve_padding", "out_size", "box_filter_2d",
            "box_filter_2d_reference", "conv_maps", "conv_maps_reference",
+           "box_filter_2d_vjp_reference",
            "check_method", "METHODS", "build", "launches",
-           "prologue_launches", "epilogue_launches", "copies"]
+           "prologue_launches", "epilogue_launches", "vjp_launches",
+           "copies"]
 
 PadT = Tuple[int, int]
 Operand = Union[None, float, torch.Tensor]
@@ -51,8 +62,10 @@ Operand = Union[None, float, torch.Tensor]
 launches = 0            # box-filter kernel launches, every form
 prologue_launches = 0   # of them, with the ReLU prologue
 epilogue_launches = 0   # of them, with the skip epilogue
+vjp_launches = 0        # launches of the adjoint kernel
 copies = 0     # inputs copied to make them contiguous before a launch
 _lib = None
+_partials_sizes = (None, {})   # (the library, its partials sizes by shape)
 
 # the JAX package's lowerings of the box filter (settings.conv_method)
 METHODS = ("shifts", "separable", "direct", "matmul")
@@ -167,6 +180,74 @@ def conv_maps_reference(maps: Sequence[torch.Tensor], kernel_size: int,
                   scale, bias)
 
 
+def _shift_sum_1d_vjp(g: torch.Tensor, dim: int, length: int, k: int,
+                      stride: int, pad: PadT, dilation: int) -> torch.Tensor:
+    """The adjoint of ``_shift_sum_1d`` along ``dim`` (whose input had
+    ``length`` entries there): each of the k strided slices of ``g`` added
+    back into the zero-padded axis, tap by tap in order, then the padding
+    dropped."""
+    shape = list(g.shape)
+    shape[dim] = length + pad[0] + pad[1]
+    buf = g.new_zeros(shape)
+    head = (slice(None),) * dim
+    n_out = g.shape[dim]
+    for a in range(k):
+        start = a * dilation
+        buf[head + (slice(start, start + (n_out - 1) * stride + 1,
+                          stride),)] += g
+    return buf.narrow(dim, pad[0], length)
+
+
+def box_filter_2d_vjp_reference(g: torch.Tensor, size: Tuple[int, int],
+                                kernel_size: int, stride: int = 1,
+                                padding: Union[str, int, PadT] = 0,
+                                dilation: int = 1) -> torch.Tensor:
+    """The adjoint of ``box_filter_2d_reference`` on [..., W, H] inputs
+    of ``size`` (W, H), in plain torch: ``g`` [..., Wo, Ho] sent back
+    through the H slices, then the W slices (the forward's passes in
+    reverse).  sum <box^T(g), a> = sum <g, box(a)> for every a."""
+    check_method()
+    pad = resolve_padding(padding, kernel_size, dilation)
+    w, h = size
+    u = _shift_sum_1d_vjp(g, g.ndim - 1, h, kernel_size, stride, pad,
+                          dilation)
+    return _shift_sum_1d_vjp(u, g.ndim - 2, w, kernel_size, stride, pad,
+                             dilation)
+
+
+def _vjp_reference(geom: Geometry, grads: Sequence[torch.Tensor],
+                   maps: Sequence[torch.Tensor], modes: Sequence[int],
+                   want: Sequence[bool], scale: Operand, leaves: bool):
+    """What one launch of the adjoint kernel computes, in plain torch
+    (``_launch_vjp``'s arguments, without the stream): for map f, t =
+    box^T(grads[f]) and its input cotangent ``t * scale`` (``AS_IS``),
+    ``t * scale * 0.5`` (``HALF``: the map was halved before the filter)
+    or t itself (``RELU``: the ReLU's adjoint takes it on), None where
+    ``want[f]`` is False; with ``leaves``, d scale = sum_f <t_f, the
+    filtered map> over the maps that are not ``RELU`` (the ReLU's adjoint
+    adds its own) and d bias = sum_f sum grads[f], as 0-d float32
+    tensors (else None)."""
+    outs, dscale, dbias = [], None, None
+    for g, a, mode, wanted in zip(grads, maps, modes, want):
+        t = box_filter_2d_vjp_reference(g, tuple(a.shape[-2:]), *geom)
+        if mode == RELU:
+            out = t
+        else:
+            out = t if scale is None else t * scale
+            if mode == HALF:
+                out = out * 0.5
+                a = a * 0.5
+            if leaves:
+                dot = (t * a).sum()
+                dscale = dot if dscale is None else dscale + dot
+        outs.append(out if wanted else None)
+        if leaves:
+            dbias = g.sum() if dbias is None else dbias + g.sum()
+    if leaves and dscale is None:
+        dscale = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+    return outs, dscale, dbias
+
+
 def box_filter_2d(x: torch.Tensor, kernel_size: int, stride: int = 1,
                   padding: Union[str, int, PadT] = 0,
                   dilation: int = 1) -> torch.Tensor:
@@ -219,8 +300,17 @@ def build() -> float:
     plan_fn.restype = None
     lib.cnn_gp_box_filter_error_string.argtypes = [ctypes.c_int]
     lib.cnn_gp_box_filter_error_string.restype = ctypes.c_char_p
+    vjp_lib = cuda_lib.library("boxfilter_vjp")
+    vjp = vjp_lib.cnn_gp_box_filter_vjp
+    vjp.argtypes = ([ptr, ptr, ptr, i64, i32] * 3 + [i32] * 8
+                    + [f32, ptr, i32, ptr, ptr, ptr, i32, ptr])
+    vjp.restype = ctypes.c_int
+    partials = vjp_lib.cnn_gp_box_filter_vjp_partials
+    partials.argtypes = [i32] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    partials.restype = ctypes.c_int
     _lib = types.SimpleNamespace(
         cnn_gp_conv_layer=layer, cnn_gp_box_filter_plan=plan_fn,
+        cnn_gp_box_filter_vjp=vjp, cnn_gp_box_filter_vjp_partials=partials,
         error_string=lambda code: lib.cnn_gp_box_filter_error_string(
             code).decode())
     return seconds
@@ -263,38 +353,43 @@ def _route(geom: Geometry, maps: List[torch.Tensor], scale: Operand,
 
 
 class _ConvMaps(torch.autograd.Function):
-    """The kernel as the forward; the backward re-runs the plain version
-    on the saved inputs under ``enable_grad`` and returns its gradients,
-    the same as plain autograd's.  (A hand-written backward kernel is
-    ROADMAP Queue 2 item 1, the tile VJP.)"""
+    """The kernel as the forward; the backward one launch of the adjoint
+    kernel (``_launch_vjp``): the maps' cotangents and the leaf gradients
+    of the scale and the bias."""
 
     @staticmethod
     def forward(ctx, geom, stream, scale, bias, *maps):
-        ctx.geom = geom
-        ctx.operands = [None if isinstance(t, torch.Tensor) else t
-                        for t in (scale, bias)]
-        ctx.save_for_backward(*[t if isinstance(t, torch.Tensor) else None
-                                for t in (scale, bias)], *maps)
+        ctx.geom, ctx.stream = geom, stream
+        ctx.scale = None if isinstance(scale, torch.Tensor) else scale
+        ctx.leaf_devices = _leaf_devices(scale, bias)
+        ctx.save_for_backward(
+            scale if isinstance(scale, torch.Tensor) else None, *maps)
         return tuple(_launch(geom, list(maps), scale, bias, stream))
 
     @staticmethod
     def backward(ctx, *grads):
-        saved = ctx.saved_tensors
-        needs = ctx.needs_input_grad[2:]
-        inputs = [ctx.operands[i] if saved[i] is None else saved[i]
-                  for i in range(2)] + list(saved[2:])
-        inputs = [t.detach().requires_grad_(need)
-                  if isinstance(t, torch.Tensor) else t
-                  for t, need in zip(inputs, needs)]
-        with torch.enable_grad():
-            outs = _plain(ctx.geom, inputs[2:], inputs[0], inputs[1])
-        pairs = [(o, g) for o, g in zip(outs, grads) if o.requires_grad]
-        wrt = [t for t, need in zip(inputs, needs) if need]
-        got = iter(torch.autograd.grad([o for o, _ in pairs],
-                                       wrt, [g for _, g in pairs],
-                                       allow_unused=True))
-        return (None, None) + tuple(next(got) if need else None
-                                    for need in needs)
+        scale, *maps = ctx.saved_tensors
+        scale = ctx.scale if scale is None else scale
+        n_scale, n_bias, *want = ctx.needs_input_grad[2:]
+        outs, dscale, dbias = _launch_vjp(
+            ctx.geom, list(grads), maps, [AS_IS] * len(maps), want, scale,
+            n_scale or n_bias, ctx.stream)
+        return (None, None) + _leaf_grads(ctx.leaf_devices, (n_scale, n_bias),
+                                         (dscale, dbias)) + tuple(outs)
+
+
+def _leaf_devices(scale: Operand, bias: Operand):
+    """The devices of the scale and the bias that are tensors (None for
+    a float): where their gradients go."""
+    return tuple(t.device if isinstance(t, torch.Tensor) else None
+                 for t in (scale, bias))
+
+
+def _leaf_grads(devices, needs, grads) -> tuple:
+    """(d scale, d bias) as autograd wants them: each on its operand's
+    device, None where it is not wanted."""
+    return tuple(g.to(dev) if need else None
+                 for dev, need, g in zip(devices, needs, grads))
 
 
 def _f32(v: float) -> float:
@@ -402,7 +497,10 @@ def _launch_layer(geom: Geometry, maps: List[torch.Tensor],
                              f"got {mask.dtype} {tuple(mask.shape)} on "
                              f"{mask.device}")
         # held until the launch: a copy freed earlier could be reused
-        xx, yy = _contiguous(xx), _contiguous(yy)
+        # one copy of a same block's side map, so the launch sees yy is xx
+        one_side = arccos._one_side(xx, yy)
+        xx = _contiguous(xx)
+        yy = xx if one_side else _contiguous(yy)
         side = [xx, yy, None if mask is None else _contiguous(mask)]
         table = (arccos.factor_table(xx, yy) if form == arccos.PAIR_FAST
                  else None)
@@ -443,3 +541,88 @@ def _launch_layer(geom: Geometry, maps: List[torch.Tensor],
     prologue_launches += relu
     epilogue_launches += any(s is not None for s in skips)
     return outs
+
+
+def vjp_partials(w: int, h: int, wo: int, ho: int, device) -> int:
+    """Floats of the per-block partial sums that an adjoint launch over
+    [w, h] planes filtered to [wo, ho] reduces its leaf gradients through
+    (two per block of its persistent grid).  Builds the library; the
+    library's answer is kept per sizes and device."""
+    global _partials_sizes
+    build()
+    key = (w, h, wo, ho, torch.device(device).index or 0)
+    if _partials_sizes[0] is not _lib:
+        _partials_sizes = (_lib, {})
+    if key not in _partials_sizes[1]:
+        n = ctypes.c_int()
+        err = _lib.cnn_gp_box_filter_vjp_partials(*key, ctypes.byref(n))
+        if err != 0:
+            raise RuntimeError(f"box-filter adjoint: cuda error {err} "
+                               f"({_lib.error_string(err)})")
+        _partials_sizes[1][key] = n.value
+    return _partials_sizes[1][key]
+
+
+def _launch_vjp(geom: Geometry, grads: List[torch.Tensor],
+                maps: List[torch.Tensor], modes: List[int],
+                want: Sequence[bool], scale: Operand, leaves: bool, stream):
+    """One launch of the adjoint kernel (``csrc/boxfilter_vjp.cu``) on
+    ``stream`` over up to three maps; computes what ``_vjp_reference``
+    does: the input cotangent of map f where ``want[f]`` (of mode
+    ``AS_IS``, ``HALF`` or ``RELU``, as there), and with ``leaves`` the
+    leaf gradients d scale and d bias as 0-d float32 tensors on the card,
+    reduced in the same launch through per-block partial sums.  A map
+    that is not wanted and takes no part in d scale is read for d bias
+    alone."""
+    global vjp_launches
+    if not 1 <= len(maps) == len(grads) == len(modes) == len(want) <= 3:
+        raise ValueError("one to three maps, each with its cotangent, mode "
+                         "and flag")
+    device = maps[0].device
+    w, h = maps[0].shape[-2:]
+    wo, ho = geom.out_shape(w, h)
+    for a, g, mode in zip(maps, grads, modes):
+        if a.dtype != torch.float32 or g.dtype != torch.float32:
+            raise ValueError(f"maps and cotangents must be float32, got "
+                             f"{a.dtype} and {g.dtype}")
+        if a.device != device or g.device != device:
+            raise ValueError(f"maps and cotangents on {a.device} and "
+                             f"{g.device}, map 0 on {device}")
+        if a.shape[-2:] != (w, h) or g.shape != a.shape[:-2] + (wo, ho):
+            raise ValueError(f"a map {tuple(a.shape)} takes a cotangent of "
+                             f"{tuple(a.shape[:-2] + (wo, ho))}, got "
+                             f"{tuple(g.shape)}")
+        if mode not in (AS_IS, HALF, RELU):
+            raise ValueError(f"unknown mode {mode}")
+    grads = [_contiguous(g) for g in grads]
+    maps = [_contiguous(a) for a in maps]
+    outs = [torch.empty(a.shape, dtype=torch.float32, device=device)
+            if wanted else None for a, wanted in zip(maps, want)]
+    dscale = dbias = partials = None
+    if leaves:
+        sums = torch.empty(2, dtype=torch.float32, device=device)
+        dscale, dbias = sums[0], sums[1]
+        partials = torch.empty(vjp_partials(w, h, wo, ho, device),
+                               dtype=torch.float32, device=device)
+    slots = []
+    for f in range(3):
+        if f < len(maps):
+            slots += [grads[f].data_ptr(), maps[f].data_ptr(),
+                      None if outs[f] is None else outs[f].data_ptr(),
+                      maps[f].numel() // (w * h), modes[f]]
+        else:
+            slots += [None, None, None, 0, AS_IS]
+    scale_v, scale_p = _operand(scale, device)
+    k, s, (lo, _), d = geom
+    err = _lib.cnn_gp_box_filter_vjp(
+        *slots, w, h, wo, ho, k, s, lo, d, scale_v, scale_p,
+        int(scale is not None),
+        None if dscale is None else dscale.data_ptr(),
+        None if dbias is None else dbias.data_ptr(),
+        None if partials is None else partials.data_ptr(), device.index,
+        stream)
+    if err != 0:
+        raise RuntimeError(f"box-filter adjoint launch failed: cuda error "
+                           f"{err} ({_lib.error_string(err)})")
+    vjp_launches += 1
+    return outs, dscale, dbias

@@ -6,7 +6,7 @@ interface, compiled by ``nvcc`` for ``sm_90a`` into ``_build/`` (one
 The libraries are keyed by a hash of every source, every header
 (``csrc/*.cuh``) and ``NVCC_FLAGS``, so a changed file rebuilds them all.  Nothing is built when this module is
 imported: each kernel's wrapper calls ``build`` at its first launch, and
-the first call builds the four libraries at once.  ``build_log`` holds
+the first call builds the six libraries at once.  ``build_log`` holds
 ptxas's register report and ``ptxas_report`` parses it.
 """
 
@@ -27,9 +27,11 @@ __all__ = ["SOURCES", "HEADERS", "BUILD_DIR", "NVCC_FLAGS", "build", "library",
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # library name -> source: the megakernel's pair kernel and pre-pass, the
-# Conv2d box filter (with the fused ResNet layer) and the arccos ReLU
+# Conv2d box filter (with the fused ResNet layer), the arccos ReLU, and
+# the adjoints of the last two (the fit's backward)
 SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
-           for name in ("megakernel", "diag_maps", "boxfilter", "arccos")}
+           for name in ("megakernel", "diag_maps", "boxfilter", "arccos",
+                        "boxfilter_vjp", "arccos_vjp")}
 HEADERS = sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cuh")))
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -110,7 +112,8 @@ _SMEM = re.compile(r"(\d+) bytes smem")
 _SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _TEMPLATE = re.compile(r"I((?:Li\d+E)+)E")
 _KERNELS = ("pair_kernel_generic", "pair_kernel", "diag_maps_kernel",
-            "box_layer_staged", "box_layer_unstaged", "relu_kernel")
+            "box_layer_staged", "box_layer_unstaged", "relu_kernel",
+            "box_vjp_kernel", "relu_vjp_pair", "relu_vjp_diagonal")
 
 
 def ptxas_report(log: str) -> List[dict]:

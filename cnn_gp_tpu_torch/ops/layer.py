@@ -15,10 +15,18 @@ the prologue (xy' from the pre-ReLU xy, xx and yy, the side maps halved),
 the skip added in the epilogue, bit-equal to the plain chain.
 ``conv_layer`` runs the plain version for CPU tensors and launches the
 kernel for CUDA tensors, or raises; under autograd the launch is the
-forward of a ``torch.autograd.Function`` whose backward re-runs the plain
-version under the forward's settings.  The launch counts are
-``boxfilter.launches`` (every box-filter launch),
-``boxfilter.prologue_launches`` and ``boxfilter.epilogue_launches``.
+forward of a ``torch.autograd.Function`` whose backward launches the
+adjoint kernels: the skip's cotangent passes through as it is, one launch
+of the box filter's adjoint (``csrc/boxfilter_vjp.cu``) takes the output
+cotangents back through the filter and reduces d scale and d bias, and,
+with the prologue, one launch of the ReLU's adjoint (``csrc/arccos_vjp.cu``)
+takes the xy map's share on through the ReLU from the saved pre-ReLU xy,
+xx and yy, adding its share of d scale (the ReLU's output is not kept:
+the adjoint recomputes it).  Its plain version is
+``conv_layer_vjp_reference``, the same steps on the two plain VJPs.  The
+launch counts are ``boxfilter.launches`` (every box-filter launch),
+``boxfilter.prologue_launches`` and ``boxfilter.epilogue_launches``; the
+backward's are ``boxfilter.vjp_launches`` and ``arccos.vjp_launches``.
 """
 
 from __future__ import annotations
@@ -30,7 +38,7 @@ import torch
 from ..kernel_patch import KernelPatch
 from . import arccos, boxfilter
 
-__all__ = ["conv_layer", "conv_layer_reference"]
+__all__ = ["conv_layer", "conv_layer_reference", "conv_layer_vjp_reference"]
 
 
 def _add(skip: Optional[KernelPatch], out: KernelPatch) -> KernelPatch:
@@ -95,9 +103,24 @@ class _Spec(NamedTuple):
     diag_mask: Optional[torch.Tensor]
     mask: Optional[torch.Tensor]   # the resolved same-example mask
     n_out: int                     # 2: yy' is xx' (filtered once)
+    third_xx: bool                 # the third map filtered is xx
     form: int                      # arccos.PAIR_FAST / PAIR_REFERENCE
     exact: int
-    settings: dict                 # for the backward to restore
+    grad_safe: bool                # of the forward, for the backward
+
+
+def _spec(kp: KernelPatch, conv, relu: bool,
+          skip: Optional[KernelPatch]) -> _Spec:
+    # yy' is xx' after the ReLU of a same block, and a map that is xx is
+    # filtered once, as in Conv2d.propagate; the skip's yy, when it is not
+    # its xx, makes a third map all the same
+    form, exact, grad_safe = arccos._forms()
+    one_side = (kp.same if relu else kp.yy is kp.xx)
+    one_skip = skip is None or skip.yy is skip.xx
+    return _Spec(_geometry(conv), relu, kp.same, kp.diag_mask,
+                 kp.resolve_diag_mask() if relu else None,
+                 2 if one_side and one_skip else 3, one_side, form, exact,
+                 grad_safe)
 
 
 def _route(kp: KernelPatch, conv, relu: bool, skip: Optional[KernelPatch],
@@ -106,16 +129,7 @@ def _route(kp: KernelPatch, conv, relu: bool, skip: Optional[KernelPatch],
     if relu and kp.diag:
         raise ValueError("the ReLU prologue takes pair patches; a diagonal "
                          "patch takes relu_transform, then conv_maps")
-    geom = _geometry(conv)
-    form, exact, saved = arccos._forms()
-    # yy' is xx' after the ReLU of a same block, and a map that is xx is
-    # filtered once, as in Conv2d.propagate; the skip's yy, when it is not
-    # its xx, makes a third map all the same
-    one_side = (kp.same if relu else kp.yy is kp.xx)
-    one_skip = skip is None or skip.yy is skip.xx
-    spec = _Spec(geom, relu, kp.same, kp.diag_mask,
-                 kp.resolve_diag_mask() if relu else None,
-                 2 if one_side and one_skip else 3, form, exact, saved)
+    spec = _spec(kp, conv, relu, skip)
     tensors = [kp.xy, kp.xx, kp.yy] + (
         [None] * 3 if skip is None else [skip.xy, skip.xx, skip.yy])
     scale, bias = _operands(conv)
@@ -131,64 +145,114 @@ def _route(kp: KernelPatch, conv, relu: bool, skip: Optional[KernelPatch],
     return KernelPatch(outs[0], outs[1], outs[-1], kp.same, kp.diag, mask)
 
 
+def _maps(spec: _Spec, xy, xx, yy):
+    """The maps a launch filters and their prologues: xy (through the ReLU
+    when ``spec.relu``), xx (halved after a ReLU) and, with three outputs,
+    xx again or yy."""
+    pro = boxfilter.HALF if spec.relu else boxfilter.AS_IS
+    maps = [xy, xx] + ([xx if spec.third_xx else yy] if spec.n_out == 3
+                       else [])
+    prologues = [boxfilter.RELU if spec.relu else boxfilter.AS_IS,
+                 pro, pro][:spec.n_out]
+    return maps, prologues
+
+
 def _launch(spec: _Spec, tensors: List[Optional[torch.Tensor]], scale,
             bias, stream) -> List[torch.Tensor]:
     """One launch of the fused layer; returns its ``spec.n_out`` output
     maps (xy, xx and, with three, yy)."""
     xy, xx, yy, s_xy, s_xx, s_yy = tensors
-    pro = boxfilter.HALF if spec.relu else boxfilter.AS_IS
-    maps = [xy, xx]
-    prologues = [boxfilter.RELU if spec.relu else boxfilter.AS_IS, pro]
-    skips = [s_xy, s_xx]
-    if spec.n_out == 3:
-        one_side = spec.same if spec.relu else yy is xx
-        maps.append(xx if one_side else yy)
-        prologues.append(pro)
-        skips.append(s_yy)
+    maps, prologues = _maps(spec, xy, xx, yy)
     side = ((xx, yy, spec.mask, spec.form, spec.exact) if spec.relu
             else None)
-    return boxfilter._launch_layer(spec.geom, maps, prologues, skips, side,
+    return boxfilter._launch_layer(spec.geom, maps, prologues,
+                                   [s_xy, s_xx, s_yy][:spec.n_out], side,
                                    scale, bias, stream)
 
 
+def _backward(spec: _Spec, scale, xy, xx, yy, grads, needs, box_vjp,
+              relu_vjp):
+    """The layer's VJP against the cotangents ``grads`` of its
+    ``spec.n_out`` outputs: ``(d scale, d bias, g_xy, g_xx, g_yy, gs_xy,
+    gs_xx, gs_yy)``, each None where ``needs`` (the same eight flags) says
+    so, from one call of ``box_vjp`` (``boxfilter._launch_vjp`` or its
+    plain version, without the stream) and, with the ReLU, one of
+    ``relu_vjp`` (``arccos._launch_vjp`` or its plain version).  The
+    skip's cotangents are the outputs' own (gs_yy None when the skip's yy
+    is its xx: the one tensor took its cotangent through xx)."""
+    n_scale, n_bias, n_xy, n_xx, n_yy = needs[:5]
+    maps, modes = _maps(spec, xy, xx, yy)
+    relu_runs = spec.relu and (n_xy or n_xx or n_yy or n_scale)
+    # map 0's box^T(g) feeds the ReLU's adjoint; map 2 is xx's or yy's
+    want = [relu_runs if spec.relu else n_xy, n_xx,
+            n_xx if spec.third_xx else n_yy][:spec.n_out]
+    outs, dscale, dbias = box_vjp(spec.geom, list(grads), maps, modes, want,
+                                  scale, n_scale or n_bias)
+    outs = outs + [None] * (3 - len(outs))
+    acc_xx = outs[1]
+    if spec.third_xx and outs[2] is not None:
+        acc_xx = outs[2] if acc_xx is None else acc_xx + outs[2]
+    acc_yy = None if spec.third_xx else outs[2]
+    if relu_runs:
+        arccos.check_grad_safe(spec.mask, spec.grad_safe)
+        g_xy, g_xx, g_yy = relu_vjp(
+            outs[0], xy, xx, yy, spec.mask,
+            spec.form, spec.exact, scale, (n_xy, n_xx, n_yy), acc_xx,
+            acc_yy, dscale if n_scale else None)
+    else:
+        g_xy, g_xx, g_yy = (None if spec.relu else outs[0]), acc_xx, acc_yy
+    skip = [grads[0], grads[1], grads[2] if spec.n_out == 3 else None]
+    return (dscale if n_scale else None, dbias if n_bias else None,
+            g_xy if n_xy else None, g_xx if n_xx else None,
+            g_yy if n_yy else None) + tuple(
+                g if need else None for g, need in zip(skip, needs[5:]))
+
+
 class _ConvLayer(torch.autograd.Function):
-    """The fused launch as the forward; the backward re-runs
-    ``conv_layer_reference`` on the saved inputs, under the settings of
-    the forward (``relu_impl``, ``acos_impl``, ``grad_safe``), and
-    returns its gradients, the same as plain autograd's.  (A hand-written
-    backward kernel is ROADMAP Queue 2, the tile VJP.)"""
+    """The fused launch as the forward; the backward launches the adjoint
+    kernels (``_backward`` on ``boxfilter._launch_vjp`` and
+    ``arccos._launch_vjp``) under the forms of the forward, on the saved
+    inputs of the layer (not the skip, whose cotangent passes through)."""
 
     @staticmethod
     def forward(ctx, spec, stream, scale, bias, *tensors):
-        ctx.spec = spec
-        ctx.operands = [None if isinstance(t, torch.Tensor) else t
-                        for t in (scale, bias)]
-        ctx.save_for_backward(*[t if isinstance(t, torch.Tensor) else None
-                                for t in (scale, bias)], *tensors)
+        ctx.spec, ctx.stream = spec, stream
+        ctx.scale = None if isinstance(scale, torch.Tensor) else scale
+        ctx.leaf_devices = boxfilter._leaf_devices(scale, bias)
+        ctx.save_for_backward(
+            scale if isinstance(scale, torch.Tensor) else None,
+            *tensors[:3])
         return tuple(_launch(spec, list(tensors), scale, bias, stream))
 
     @staticmethod
     def backward(ctx, *grads):
-        from .. import settings
-        spec = ctx.spec
-        saved = ctx.saved_tensors
+        scale, xy, xx, yy = ctx.saved_tensors
+        scale = ctx.scale if scale is None else scale
+        stream = ctx.stream
         needs = ctx.needs_input_grad[2:]
-        inputs = [ctx.operands[i] if saved[i] is None else saved[i]
-                  for i in range(2)] + list(saved[2:])
-        inputs = [t.detach().requires_grad_(need)
-                  if isinstance(t, torch.Tensor) else t
-                  for t, need in zip(inputs, needs)]
-        scale, bias, xy, xx, yy, s_xy, s_xx, s_yy = inputs
-        kp = KernelPatch(xy, xx, yy, spec.same, False, spec.diag_mask)
-        skip = None if s_xy is None else KernelPatch(
-            s_xy, s_xx, s_yy, spec.same, False, spec.diag_mask)
-        with settings.override(**spec.settings), torch.enable_grad():
-            out = _reference(kp, spec.geom, scale, bias, spec.relu, skip)
-        outs = [out.xy, out.xx, out.yy][:spec.n_out]
-        pairs = [(o, g) for o, g in zip(outs, grads) if o.requires_grad]
-        wrt = [t for t, need in zip(inputs, needs) if need]
-        got = iter(torch.autograd.grad([o for o, _ in pairs], wrt,
-                                       [g for _, g in pairs],
-                                       allow_unused=True))
-        return (None, None) + tuple(next(got) if need else None
-                                    for need in needs)
+        got = _backward(
+            ctx.spec, scale, xy, xx, yy, grads, needs,
+            lambda *a: boxfilter._launch_vjp(*a, stream),
+            lambda *a: arccos._launch_vjp(*a, stream))
+        return (None, None) + boxfilter._leaf_grads(
+            ctx.leaf_devices, needs[:2], got[:2]) + got[2:]
+
+
+def conv_layer_vjp_reference(kp: KernelPatch, conv, relu: bool,
+                             skip: Optional[KernelPatch], grads):
+    """The VJP of ``conv_layer_reference(kp, conv, relu, skip)`` in plain
+    torch, composed from ``boxfilter._vjp_reference`` and
+    ``arccos._vjp_reference`` as the card's backward composes the two
+    kernels: ``grads`` are the cotangents of the layer's distinct output
+    maps (xy', xx' and, unless yy' is xx', yy'); returns ``(d scale, d
+    bias, (g_xy, g_xx, g_yy), (gs_xy, gs_xx, gs_yy))`` for the ``Conv2d``'s
+    scale ``var_weight / k**2`` and bias, ``kp``'s fields (g_yy None where
+    yy is xx and its cotangent went to g_xx) and the skip's (None without
+    one).  Under the settings of the forward; a masked ReLU needs
+    ``settings.grad_safe``."""
+    spec = _spec(kp, conv, relu, skip)
+    scale, _ = _operands(conv)
+    got = _backward(spec, scale, kp.xy, kp.xx, kp.yy, grads,
+                    [True] * 5 + [skip is not None] * 3,
+                    boxfilter._vjp_reference, arccos._vjp_reference)
+    return got[0], got[1], got[2:5], got[5:8]

@@ -374,10 +374,11 @@ def kernel_route(monkeypatch):
     """The CUDA route of the layers on CPU tensors: the launches are
     stubbed by the plain forward (under no_grad, as a kernel computes
     it), so everything around them, the autograd Functions included,
-    runs as on the card.  Counts every stubbed launch: every box-filter
-    launch ("box"), of them those with the ReLU prologue ("prologue") and
-    with the skip epilogue ("epilogue"), and the standalone ReLU
-    launches ("relu")."""
+    runs as on the card; the backward's launches of the adjoint kernels
+    are stubbed by their plain versions.  Counts every stubbed forward
+    launch: every box-filter launch ("box"), of them those with the ReLU
+    prologue ("prologue") and with the skip epilogue ("epilogue"), and
+    the standalone ReLU launches ("relu")."""
     counts = {"box": 0, "prologue": 0, "epilogue": 0, "relu": 0}
 
     def box_launch(geom, maps, scale, bias, stream):
@@ -401,9 +402,21 @@ def kernel_route(monkeypatch):
             return tarc.relu_xy_reference(xy, xx, yy, mask,
                                           mode == tarc.DIAGONAL)
 
+    def box_vjp_launch(*args):
+        tbox.vjp_launches += 1
+        return tbox._vjp_reference(*args[:-1])
+
+    def relu_vjp_launch(*args):
+        tarc.vjp_launches += 1
+        return tarc._vjp_reference(*args[:-1])
+
     monkeypatch.setattr(tbox, "_launch", box_launch)
     monkeypatch.setattr(tbox, "_launch_layer", layer_launch)
     monkeypatch.setattr(tarc, "_launch", relu_launch)
+    # the backward's launches, by the adjoints' plain versions (counted
+    # in the modules' own vjp_launches, as the kernels' wrappers count)
+    monkeypatch.setattr(tbox, "_launch_vjp", box_vjp_launch)
+    monkeypatch.setattr(tarc, "_launch_vjp", relu_vjp_launch)
     monkeypatch.setattr(
         tlayer, "conv_layer", lambda kp, conv, relu=False, skip=None:
         tlayer._route(kp, conv, relu, skip, 0))
