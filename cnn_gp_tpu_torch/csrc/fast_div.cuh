@@ -1,5 +1,5 @@
 // Unsigned division by a divisor fixed at launch, for the index
-// arithmetic of csrc/boxfilter.cu and csrc/arccos.cu: a 32-bit division
+// arithmetic of the layer kernels and their adjoints: a 32-bit division
 // by a runtime value costs about 20 instructions, this one a multiply-high
 // and a shift (Granlund and Montgomery, "Division by invariant integers
 // using multiplication", 1994, theorem 4.2, with N = 31).
@@ -28,4 +28,15 @@ inline FastDiv make_fast_div(unsigned d) {
 
 __device__ __forceinline__ unsigned fast_div(unsigned n, FastDiv f) {
   return f.d == 1 ? n : __umulhi(n, f.m) >> f.s;
+}
+
+// Division by a constant when a kernel's geometry is fixed at compile time
+// (D > 0), else by multiply-high.
+template <int D>
+__device__ __forceinline__ unsigned divide(unsigned n, const FastDiv& f) {
+  if constexpr (D > 0) {
+    return n / static_cast<unsigned>(D);
+  } else {
+    return fast_div(n, f);
+  }
 }

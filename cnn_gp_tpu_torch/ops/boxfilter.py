@@ -305,12 +305,16 @@ def build() -> float:
     vjp.argtypes = ([ptr, ptr, ptr, i64, i32] * 3 + [i32] * 8
                     + [f32, ptr, i32, ptr, ptr, ptr, i32, ptr])
     vjp.restype = ctypes.c_int
+    vjp_runtime = vjp_lib.cnn_gp_box_filter_vjp_runtime_geometry
+    vjp_runtime.argtypes, vjp_runtime.restype = vjp.argtypes, vjp.restype
     partials = vjp_lib.cnn_gp_box_filter_vjp_partials
     partials.argtypes = [i32] * 5 + [ctypes.POINTER(ctypes.c_int)]
     partials.restype = ctypes.c_int
     _lib = types.SimpleNamespace(
         cnn_gp_conv_layer=layer, cnn_gp_box_filter_plan=plan_fn,
-        cnn_gp_box_filter_vjp=vjp, cnn_gp_box_filter_vjp_partials=partials,
+        cnn_gp_box_filter_vjp=vjp,
+        cnn_gp_box_filter_vjp_runtime_geometry=vjp_runtime,
+        cnn_gp_box_filter_vjp_partials=partials,
         error_string=lambda code: lib.cnn_gp_box_filter_error_string(
             code).decode())
     return seconds
@@ -565,7 +569,8 @@ def vjp_partials(w: int, h: int, wo: int, ho: int, device) -> int:
 
 def _launch_vjp(geom: Geometry, grads: List[torch.Tensor],
                 maps: List[torch.Tensor], modes: List[int],
-                want: Sequence[bool], scale: Operand, leaves: bool, stream):
+                want: Sequence[bool], scale: Operand, leaves: bool, stream,
+                runtime_geometry: bool = False):
     """One launch of the adjoint kernel (``csrc/boxfilter_vjp.cu``) on
     ``stream`` over up to three maps; computes what ``_vjp_reference``
     does: the input cotangent of map f where ``want[f]`` (of mode
@@ -573,7 +578,9 @@ def _launch_vjp(geom: Geometry, grads: List[torch.Tensor],
     leaf gradients d scale and d bias as 0-d float32 tensors on the card,
     reduced in the same launch through per-block partial sums.  A map
     that is not wanted and takes no part in d scale is read for d bias
-    alone."""
+    alone.  ``runtime_geometry`` takes the kernel with run-time indices
+    even where the geometry has a fixed instantiation (to compare and
+    time the two)."""
     global vjp_launches
     if not 1 <= len(maps) == len(grads) == len(modes) == len(want) <= 3:
         raise ValueError("one to three maps, each with its cotangent, mode "
@@ -614,7 +621,9 @@ def _launch_vjp(geom: Geometry, grads: List[torch.Tensor],
             slots += [None, None, None, 0, AS_IS]
     scale_v, scale_p = _operand(scale, device)
     k, s, (lo, _), d = geom
-    err = _lib.cnn_gp_box_filter_vjp(
+    launch = (_lib.cnn_gp_box_filter_vjp_runtime_geometry if runtime_geometry
+              else _lib.cnn_gp_box_filter_vjp)
+    err = launch(
         *slots, w, h, wo, ho, k, s, lo, d, scale_v, scale_p,
         int(scale is not None),
         None if dscale is None else dscale.data_ptr(),
