@@ -112,6 +112,7 @@ _SMEM = re.compile(r"(\d+) bytes smem")
 _SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _TEMPLATE = re.compile(r"I((?:Li\d+E)+)E")
 _KERNELS = ("pair_kernel_generic", "pair_kernel", "diag_maps_kernel",
+            "diag_maps_fixed",
             "box_layer_staged", "box_layer_unstaged", "relu_kernel",
             "box_vjp_kernel", "relu_vjp_pair", "relu_vjp_diagonal")
 

@@ -11,13 +11,18 @@ per-pair recursion against them, one warp per pair.  Both are built with
 ``nvcc`` for ``sm_90a`` at first use into ``_build/`` (``cuda_lib``: one
 ``nvcc`` per source, started together) and bound with ``ctypes``.
 
-``gram_tile`` launches both for CUDA tensors (or raises) and runs
-``gram_tile_reference``, the same network in plain torch, for CPU tensors;
-``diag_maps`` does the same for the pre-pass alone, against
-``diag_maps_reference``; ``diag_readout`` reads the diagonal kernel
-k(x_i, x_i) out of its maps.  ``launches`` counts pair-kernel launches
-(one per tile), ``prepass_launches`` pre-pass launches (one per side of a
-tile, one in all when z is x, one per ``diag_maps`` call).
+A Gram-level caller runs the pre-pass once per image set, ``diag_maps``
+on the whole set, and then ``pair_tile`` per tile on the tile's rows of
+those maps (slices, read in place).  ``gram_tile`` is the one-tile form:
+it runs the pre-pass on the tile's own images, then the pair kernel.
+Each launches its kernels for CUDA tensors (or raises) and runs its plain
+version for CPU tensors: ``pair_tile_reference`` (the per-pair recursion
+reading xx and yy from the maps), ``gram_tile_reference`` (the same
+network with xx and yy recomputed) and ``diag_maps_reference``;
+``diag_readout`` reads the diagonal kernel k(x_i, x_i) out of the maps.
+``launches`` counts pair-kernel launches (one per tile),
+``prepass_launches`` pre-pass launches (one per ``diag_maps`` call, one
+per side of a ``gram_tile`` call, one in all when z is x).
 """
 
 from __future__ import annotations
@@ -38,10 +43,11 @@ from .boxfilter import box_filter_2d_reference
 from .cuda_lib import ptxas_report  # noqa: F401  (re-exported)
 
 __all__ = ["MegaSpec", "match", "gram_tile", "gram_tile_reference",
-           "diag_maps", "diag_maps_reference", "diag_readout", "build",
-           "ptxas_report", "launches", "prepass_launches"]
+           "pair_tile", "pair_tile_reference", "diag_maps",
+           "diag_maps_reference", "diag_readout", "build", "ptxas_report",
+           "launches", "prepass_launches"]
 
-launches = 0          # pair-kernel launches by gram_tile
+launches = 0          # pair-kernel launches by gram_tile and pair_tile
 prepass_launches = 0  # pre-pass launches by gram_tile and diag_maps
 _lib = None
 
@@ -114,26 +120,36 @@ def match(model) -> Optional[MegaSpec]:
 
 def _recursion(spec: MegaSpec, x: torch.Tensor, z: torch.Tensor,
                mask: Optional[torch.Tensor] = None,
-               record: Optional[list] = None) -> torch.Tensor:
+               record: Optional[list] = None,
+               maps: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+               ) -> torch.Tensor:
     """The per-pair recursion on [bx, bz, H, W] pair maps (xx, yy stay
     [bx, 1, H, W] and [1, bz, H, W]); returns the last ReLU's xy map.
-    ``record`` collects each layer's pre-ReLU (xx, yy)."""
+    ``record`` collects each layer's pre-ReLU (xx, yy).  ``maps`` (dx,
+    dz): the pre-pass's [L, bx, H, W] and [L, bz, H, W] maps, read as each
+    layer's xx and yy instead of recomputing them (the same bits)."""
     c = x.shape[1]
     xy = xx = yy = None
     for ci in range(c):
         xc = x[:, None, ci]                  # [bx, 1, H, W]
         zc = z[None, :, ci]                  # [1, bz, H, W]
         xy = xc * zc if xy is None else xy + xc * zc
-        xx = xc * xc if xx is None else xx + xc * xc
-        yy = zc * zc if yy is None else yy + zc * zc
+        if maps is None:
+            xx = xc * xc if xx is None else xx + xc * xc
+            yy = zc * zc if yy is None else yy + zc * zc
     inv_c = 1.0 / c
-    xy, xx, yy = xy * inv_c, xx * inv_c, yy * inv_c
+    xy = xy * inv_c
+    if maps is None:
+        xx, yy = xx * inv_c, yy * inv_c
     k = spec.kernel_size
     pad = (k // 2, k // 2)
-    for scale, vb in spec.layer_scales():
+    for li, (scale, vb) in enumerate(spec.layer_scales()):
         xy = box_filter_2d_reference(xy, k, 1, pad) * scale + vb
-        xx = box_filter_2d_reference(xx, k, 1, pad) * scale + vb
-        yy = box_filter_2d_reference(yy, k, 1, pad) * scale + vb
+        if maps is None:
+            xx = box_filter_2d_reference(xx, k, 1, pad) * scale + vb
+            yy = box_filter_2d_reference(yy, k, 1, pad) * scale + vb
+        else:
+            xx, yy = maps[0][li][:, None], maps[1][li][None, :]
         if record is not None:
             record.append((xx, yy))
         xx_yy = xx * yy + F32_TINY
@@ -159,6 +175,17 @@ def gram_tile_reference(spec: MegaSpec, x: torch.Tensor, z: torch.Tensor,
     (non-factored) ReLU form, on [bx, bz, H, W] pair maps, with xx and yy
     recomputed per pair: the yardstick of the math."""
     return _readout(spec, _recursion(spec, x, z, mask))
+
+
+def pair_tile_reference(spec: MegaSpec, x: torch.Tensor, z: torch.Tensor,
+                        dx: torch.Tensor, dz: torch.Tensor,
+                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The pair kernel's network in plain torch on given maps: the per-pair
+    recursion with xx and yy read from ``dx`` and ``dz`` ([L, bx, H, W]
+    and [L, bz, H, W], ``diag_maps_reference`` of x and z or slices of a
+    set's) and halved after each layer.  Bit for bit
+    ``gram_tile_reference``, since the maps equal its xx and yy."""
+    return _readout(spec, _recursion(spec, x, z, mask, maps=(dx, dz)))
 
 
 def diag_maps_reference(spec: MegaSpec, x: torch.Tensor) -> torch.Tensor:
@@ -193,7 +220,7 @@ def build() -> float:
     t0 = time.perf_counter()
     pair, pre = cuda_lib.library("megakernel"), cuda_lib.library("diag_maps")
     pair.cnn_gp_pair_tile.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
         + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     pair.cnn_gp_pair_tile.restype = ctypes.c_int
     pre.cnn_gp_diag_maps.argtypes = ([ctypes.c_void_p] * 3
@@ -248,14 +275,37 @@ def _check(spec: MegaSpec, x: torch.Tensor, z: torch.Tensor,
             raise ValueError("mask must be contiguous and on x's device")
 
 
+def _map_stride(spec: MegaSpec, name: str, d: torch.Tensor,
+                x: torch.Tensor) -> int:
+    """Check ``d`` as the pre-pass maps of ``x`` ([L, b, H, W] float32 on
+    x's device, each image's map contiguous, layers a whole number of
+    maps apart, not overlapping) and return its layer stride in images."""
+    n_layers, (b, _, h, w) = len(spec.layer_vw_vb), x.shape
+    if d.dtype != torch.float32 or tuple(d.shape) != (n_layers, b, h, w):
+        raise ValueError(f"{name} must be the [{n_layers}, {b}, {h}, {w}] "
+                         f"float32 maps of its images, got {d.dtype} "
+                         f"{tuple(d.shape)}")
+    if d.device != x.device:
+        raise ValueError(f"{name} on {d.device} but its images on "
+                         f"{x.device}")
+    hw = h * w
+    ld = d.stride(0) // hw if n_layers > 1 else b
+    if (d.stride()[1:] != (hw, w, 1)
+            or (n_layers > 1 and (d.stride(0) % hw or ld < b))):
+        raise ValueError(f"{name}: each image's map must be contiguous and "
+                         f"the layers whole maps apart, got strides "
+                         f"{d.stride()}")
+    return ld
+
+
 def gram_tile(spec: MegaSpec, x: torch.Tensor, z: torch.Tensor,
               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One [bx, bz] Gram tile of the fused network, for any bx, bz.
 
     ``x``: [bx, C, H, W]; ``z``: [bz, C, H, W] float32; ``mask``: [bx, bz]
     bool or uint8 of same-example pairs, or None.  CUDA tensors launch the
-    pre-pass and the pair kernel, or the call raises; CPU tensors run the
-    plain version.
+    pre-pass (once when z is x) and the pair kernel, or the call raises;
+    CPU tensors run the plain version.
     """
     _check(spec, x, z, mask)
     if x.device.type == "cpu":
@@ -264,10 +314,33 @@ def gram_tile(spec: MegaSpec, x: torch.Tensor, z: torch.Tensor,
     return _launch(spec, x, z, mask)
 
 
+def pair_tile(spec: MegaSpec, x: torch.Tensor, z: torch.Tensor,
+              dx: torch.Tensor, dz: torch.Tensor,
+              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One [bx, bz] Gram tile on given pre-pass maps: ``dx`` [L, bx, H, W]
+    of x and ``dz`` [L, bz, H, W] of z, typically the tile's slices
+    ``d[:, i0:i0 + bx]`` of ``diag_maps`` over a whole image set (read in
+    place: each image's map contiguous, the layers any whole number of
+    maps apart).  x, z and mask as in ``gram_tile``.  CUDA tensors launch
+    the pair kernel, or the call raises; CPU tensors run
+    ``pair_tile_reference``."""
+    _check(spec, x, z, mask)
+    ldx, ldz = _map_stride(spec, "dx", dx, x), _map_stride(spec, "dz", dz, z)
+    if x.device.type == "cpu":
+        return pair_tile_reference(spec, x, z, dx, dz,
+                                   None if mask is None else mask.bool())
+    _require_cuda(x)
+    build()
+    return _launch_pair(spec, x, z, dx, dz, ldx, ldz, mask,
+                        _layer_params(spec, x.device),
+                        torch.cuda.current_stream(x.device).cuda_stream)
+
+
 def diag_maps(spec: MegaSpec, x: torch.Tensor) -> torch.Tensor:
-    """[L, b, H, W] pre-ReLU diagonal maps of the images ``x`` ([b, C, H,
-    W] float32): the pre-pass kernel for a CUDA tensor (or the call
-    raises), ``diag_maps_reference`` for a CPU tensor."""
+    """[L, N, H, W] pre-ReLU diagonal maps of the images ``x`` ([N, C, H,
+    W] float32, any N: a tile side or a whole image set): the pre-pass
+    kernel for a CUDA tensor (or the call raises), ``diag_maps_reference``
+    for a CPU tensor."""
     _check_images(spec, "x", x)
     if x.device.type == "cpu":
         return diag_maps_reference(spec, x)
@@ -318,7 +391,8 @@ def _launch_kernels(spec: MegaSpec, x: torch.Tensor, z: torch.Tensor,
     dx = _launch_diag_maps(spec, x, params, stream)
     dz = dx if _same_images(x, z) else _launch_diag_maps(spec, z, params,
                                                          stream)
-    return _launch_pair(spec, x, z, dx, dz, mask, params, stream)
+    return _launch_pair(spec, x, z, dx, dz, len(x), len(z), mask, params,
+                        stream)
 
 
 def _launch_diag_maps(spec: MegaSpec, x: torch.Tensor, params: torch.Tensor,
@@ -337,10 +411,11 @@ def _launch_diag_maps(spec: MegaSpec, x: torch.Tensor, params: torch.Tensor,
 
 
 def _launch_pair(spec: MegaSpec, x: torch.Tensor, z: torch.Tensor,
-                 dx: torch.Tensor, dz: torch.Tensor,
+                 dx: torch.Tensor, dz: torch.Tensor, ldx: int, ldz: int,
                  mask: Optional[torch.Tensor], params: torch.Tensor,
                  stream) -> torch.Tensor:
-    """The pair kernel of one tile, on the pre-pass's maps dx, dz."""
+    """The pair kernel of one tile, on the pre-pass's maps dx, dz (their
+    layers ldx and ldz images apart)."""
     global launches
     bx, c, h, _ = x.shape
     bz = z.shape[0]
@@ -349,7 +424,7 @@ def _launch_pair(spec: MegaSpec, x: torch.Tensor, z: torch.Tensor,
     _raise_on(_lib.cnn_gp_pair_tile(
         x.data_ptr(), z.data_ptr(), dx.data_ptr(), dz.data_ptr(),
         None if mask is None else mask.data_ptr(), params.data_ptr(),
-        out.data_ptr(), bx, bz, c, h, spec.kernel_size,
+        out.data_ptr(), bx, bz, ldx, ldz, c, h, spec.kernel_size,
         len(spec.layer_vw_vb), r_scale, r_vb, x.device.index, stream),
         "pair kernel")
     launches += 1

@@ -29,7 +29,10 @@ decide whether refinement and escalation run, are run on rank 0 alone
 and handed to every rank.
 
 Every tile goes through ``parallel.gram._tile_body``, so the tiles of a
-ConvNet-GP model run on the CUDA megakernel.  Nothing is padded at the
+ConvNet-GP model run on the CUDA megakernel, with one pre-pass per image
+set per sweep (``gram.set_maps``): an assembly, a matvec or sampled
+residual sweep, a scoring call, a variances call; ``make_scores_fn``
+keeps the training set's maps beside its images.  Nothing is padded at the
 tile level (the JAX package pads inputs to a multiple of the tile size for
 XLA's static shapes): ragged edge tiles are sliced.  Only the factor
 buffer carries identity pad rows, in the JAX package's geometry.
@@ -48,7 +51,7 @@ from ..ops import megakernel
 from ..ops import solve as solve_ops
 from . import scheduler
 from .chol_dist import _factor_for, _mesh_device
-from .gram import _on_device, _tile_body, compute_gram_diag
+from .gram import _on_device, _tile_body, compute_gram_diag, set_maps
 from .mesh import Mesh, agree, broadcast_array, row_span
 
 __all__ = ["classify_device_large", "gram_matvec_regen", "scores_regen",
@@ -64,11 +67,11 @@ def _lower_offsets(n: int, b: int):
     return [(i * b, j * b) for i in range(nt) for j in range(i + 1)]
 
 
-def _scaled_tile(model, spec, x_all, s, i0, j0, b):
+def _scaled_tile(model, spec, x_all, s, i0, j0, b, maps):
     """One tile of M: K scaled by s_i * s_j, its diagonal pinned to exactly
     1 last (the +jitter in scaled space).  With no padding there is
-    nothing outside [n) to zero."""
-    blk = _tile_body(model, spec, x_all, x_all, i0, j0, b, True)
+    nothing outside [n) to zero.  ``maps``: ``set_maps(spec, x_all)``."""
+    blk = _tile_body(model, spec, x_all, x_all, i0, j0, b, True, maps)
     bi, bj = blk.shape
     blk = blk * s[i0:i0 + bi, None] * s[None, j0:j0 + bj]
     if i0 == j0:
@@ -94,10 +97,11 @@ def _assemble_scaled(model, x_all, s, b, n, n_pad,
     [rows_local, n_pad] rows ``row_span(n_pad, mesh)``, from the lower
     tiles that touch them, each cropped to the rows the rank holds."""
     spec = megakernel.match(model)
+    maps = set_maps(spec, x_all)
     if mesh is None:
         k = _identity(n_pad, x_all.device)
         for i0, j0 in _lower_offsets(n, b):
-            blk = _scaled_tile(model, spec, x_all, s, i0, j0, b)
+            blk = _scaled_tile(model, spec, x_all, s, i0, j0, b, maps)
             k[i0:i0 + blk.shape[0], j0:j0 + blk.shape[1]] = blk
         return k
     r0, r1 = row_span(n_pad, mesh)
@@ -109,7 +113,7 @@ def _assemble_scaled(model, x_all, s, b, n, n_pad,
         g0, g1 = max(i0, r0), min(i0 + b, n, r1)
         if g0 >= g1:                 # no row of this tile is the rank's
             continue
-        blk = _scaled_tile(model, spec, x_all, s, i0, j0, b)
+        blk = _scaled_tile(model, spec, x_all, s, i0, j0, b, maps)
         k[g0 - r0:g1 - r0, j0:j0 + blk.shape[1]] = blk[g0 - i0:g1 - i0]
     return k
 
@@ -118,9 +122,10 @@ def _matvec_scan(model, x_all, s, a_dev, b, n) -> torch.Tensor:
     """M @ a by regenerating the upper tiles: each tile adds its own
     contribution and its mirror's (none on the diagonal)."""
     spec = megakernel.match(model)
+    maps = set_maps(spec, x_all)
     out = torch.zeros_like(a_dev)
     for i0, j0 in scheduler.tile_offsets(n, n, b, True):
-        blk = _scaled_tile(model, spec, x_all, s, i0, j0, b)
+        blk = _scaled_tile(model, spec, x_all, s, i0, j0, b, maps)
         bi, bj = blk.shape
         out[i0:i0 + bi] += blk @ a_dev[j0:j0 + bj]
         if i0 != j0:
@@ -134,12 +139,13 @@ def _rows_matvec(model, x_all, s, a_dev, rows_idx, b, n) -> torch.Tensor:
     n in a short last block stay zero).  Cost is ``len(rows_idx) / nt`` of
     a full `_matvec_scan` sweep."""
     spec = megakernel.match(model)
+    maps = set_maps(spec, x_all)
     out = torch.zeros((len(rows_idx) * b, a_dev.shape[1]),
                       dtype=torch.float32, device=a_dev.device)
     for pos, i in enumerate(rows_idx):
         i0 = int(i) * b
         for j0 in range(0, n, b):
-            blk = _scaled_tile(model, spec, x_all, s, i0, j0, b)
+            blk = _scaled_tile(model, spec, x_all, s, i0, j0, b, maps)
             bi, bj = blk.shape
             out[pos * b:pos * b + bi] += blk @ a_dev[j0:j0 + bj]
     return out
@@ -209,24 +215,30 @@ def _sampled_residual(model, x_all, s, a64, ys, y_norm, b, n,
 
 def make_scores_fn(model, X, a: np.ndarray, *, batch_size: int = 128,
                    device):
-    """Upload ``X`` and the weights ``a`` [len(X), nrhs] once and return
-    ``scores(Z) -> [len(Z), nrhs]``, ``K(Z, X) @ a`` by tile regeneration
-    (the repeated-serving form of :func:`scores_regen`)."""
+    """Upload ``X`` and the weights ``a`` [len(X), nrhs] once, with X's
+    pre-pass maps for a matched model, and return ``scores(Z) ->
+    [len(Z), nrhs]``, ``K(Z, X) @ a`` by tile regeneration (the
+    repeated-serving form of :func:`scores_regen`); each call runs one
+    pre-pass, on Z."""
     device = torch.device(device)
     x_all = _on_device(X, device)
     a_dev = torch.as_tensor(np.asarray(a, np.float32), device=device)
     spec = megakernel.match(model)
     b = batch_size
+    x_maps = None if spec is None else megakernel.diag_maps(spec, x_all)
 
     @torch.no_grad()
     def scores(Z) -> np.ndarray:
         settings.check_precision_on(device)
         z_all = _on_device(Z, device)
+        maps = (None if spec is None
+                else (megakernel.diag_maps(spec, z_all), x_maps))
         out = torch.zeros((len(z_all), a_dev.shape[1]), dtype=torch.float32,
                           device=device)
         for i0, j0 in scheduler.tile_offsets(len(z_all), len(x_all), b,
                                              False):
-            blk = _tile_body(model, spec, z_all, x_all, i0, j0, b, False)
+            blk = _tile_body(model, spec, z_all, x_all, i0, j0, b, False,
+                             maps)
             out[i0:i0 + blk.shape[0]] += blk @ a_dev[j0:j0 + blk.shape[1]]
         return out.cpu().numpy()
 
@@ -321,6 +333,7 @@ def variances_from_factor(factor, model, x_all: torch.Tensor,
     a_dev = (None if a_scaled is None else torch.as_tensor(
         np.asarray(a_scaled, np.float32), device=device))
     spec = megakernel.match(model)
+    maps = set_maps(spec, x_all, z_all)
     # column blocks: a multiple of the tile size, at least one tile
     cb = max(b, (_CROSS_BLOCK // b) * b)
     sumsq = torch.empty(mz, dtype=torch.float32, device=device)
@@ -329,8 +342,11 @@ def variances_from_factor(factor, model, x_all: torch.Tensor,
     for c0 in range(0, mz, cb):
         z_blk = z_all[c0:c0 + cb]
         w = torch.empty((n, len(z_blk)), dtype=torch.float32, device=device)
+        blk_maps = None if maps is None else (maps[0],
+                                              maps[1][:, c0:c0 + cb])
         for i0, j0 in scheduler.tile_offsets(n, len(z_blk), b, False):
-            blk = _tile_body(model, spec, x_all, z_blk, i0, j0, b, False)
+            blk = _tile_body(model, spec, x_all, z_blk, i0, j0, b, False,
+                             blk_maps)
             bi, bj = blk.shape
             w[i0:i0 + bi, j0:j0 + bj] = blk * s_dev[i0:i0 + bi, None]
         if sc is not None:

@@ -3,8 +3,8 @@
 PyTorch counterpart of ``cnn_gp_tpu/parallel/device_pipeline.py``.  The
 whole Gram is assembled in one card tensor, tile by tile over the
 scheduler's manifest through ``parallel.gram._tile_body`` (so every tile
-of a ConvNet-GP model goes through the CUDA megakernel), and the solve
-runs on that resident tensor:
+of a ConvNet-GP model goes through the CUDA megakernel, on one pre-pass
+per image set), and the solve runs on that resident tensor:
 
     K = gram_device(model, x, device=dev)                      # [N, N]
     acc = classify_device(model, xtr, ytr, (xte, yte), device=dev)
@@ -25,7 +25,7 @@ from .. import settings
 from ..ops import megakernel, solve
 from . import scheduler
 from .chol_dist import CardFactor
-from .gram import _on_device, _tile_body, compute_gram_diag
+from .gram import _on_device, _tile_body, compute_gram_diag, set_maps
 
 __all__ = ["gram_device", "classify_device"]
 
@@ -48,9 +48,11 @@ def gram_device(model, X, Z=None, *, batch_size: int = 128,
     n1, n2 = len(x_all), len(z_all)
     b = batch_size
     spec = megakernel.match(model)
+    maps = set_maps(spec, x_all, z_all)
     k = torch.empty((n1, n2), dtype=torch.float32, device=device)
     for i0, j0 in scheduler.tile_offsets(n1, n2, b, symmetric):
-        blk = _tile_body(model, spec, x_all, z_all, i0, j0, b, symmetric)
+        blk = _tile_body(model, spec, x_all, z_all, i0, j0, b, symmetric,
+                         maps)
         bi, bj = blk.shape
         if symmetric and i0 == j0:
             blk = torch.triu(blk) + torch.triu(blk, 1).T

@@ -6,9 +6,11 @@ PyTorch counterpart of ``cnn_gp_tpu/parallel/gram.py``:
   it, and the same-example fix-up is driven by a global-index mask, so one
   tile body serves diagonal and off-diagonal tiles.
 * Models that ``ops.megakernel.match`` accepts (the paper ConvNet-GP
-  family) compute every full tile with the fused megakernel, and their
-  symmetric diagonal k(x_i, x_i) with its pre-pass; other models, and the
-  diagonal k(x_i, z_i) of two sets, go through ``apply_kernel``.
+  family) compute every full tile with the fused megakernel: one pre-pass
+  per image set per call (``set_maps``), then the pair kernel per tile on
+  the tile's slices of those maps; their symmetric diagonal k(x_i, x_i)
+  is read out of the pre-pass.  Other models, and the diagonal k(x_i,
+  z_i) of two sets, go through ``apply_kernel``.
 * One tile per launch.  Launches are asynchronous; a consumer thread
   copies finished tiles to the host (on the producer's stream) and writes
   them, so device compute overlaps host writes.
@@ -33,10 +35,29 @@ from ..utils.timing import print_timings
 from . import scheduler
 
 __all__ = ["compute_gram", "compute_gram_diag", "save_K", "gram_in_memory",
-           "check_block_finite"]
+           "check_block_finite", "set_maps"]
 
 
-def _tile_body(model, spec, x_all, z_all, i0, j0, b, symmetric):
+def set_maps(spec, x_all, z_all=None):
+    """The pre-pass maps of the image sets a Gram-level call tiles, each
+    computed once: ``(dx, dz)``, ``megakernel.diag_maps`` of ``x_all`` and
+    of ``z_all`` (``dz`` is ``dx`` when ``z_all`` is ``x_all`` or None);
+    None when ``spec`` is None.  Maps depend on the hyperparameters, so a
+    new spec needs new maps."""
+    if spec is None:
+        return None
+    dx = megakernel.diag_maps(spec, x_all)
+    if z_all is None or z_all is x_all:
+        return dx, dx
+    return dx, megakernel.diag_maps(spec, z_all)
+
+
+def _tile_body(model, spec, x_all, z_all, i0, j0, b, symmetric, maps):
+    """The [<=b, <=b] tile of K(x_all, z_all) at (i0, j0), with the
+    global-index same-example mask when ``symmetric``.  With a ``spec``,
+    ``maps`` holds the pre-pass maps of x_all and z_all image for image
+    (``set_maps``) and the pair kernel reads the tile's slices of them;
+    otherwise ``apply_kernel``."""
     x = x_all[i0:i0 + b]
     z = z_all[j0:j0 + b]
     mask = None
@@ -45,7 +66,9 @@ def _tile_body(model, spec, x_all, z_all, i0, j0, b, symmetric):
         cols = j0 + torch.arange(len(z), device=z.device)
         mask = rows[:, None] == cols[None, :]
     if spec is not None:
-        return megakernel.gram_tile(spec, x, z, mask)
+        dx, dz = maps
+        return megakernel.pair_tile(spec, x, z, dx[:, i0:i0 + b],
+                                    dz[:, j0:j0 + b], mask)
     return apply_kernel(model, x, z, False, False, mask)
 
 
@@ -210,11 +233,14 @@ def compute_gram(model, X, Z=None, *, device, batch_size: int = 200,
     t_all = time.perf_counter()
     t_dispatch = 0.0
     entries = 0
+    # one pre-pass per image set (none when a resume left nothing to do)
+    maps = set_maps(spec, x_all, z_all) if len(offsets) else None
     try:
         for i0, j0 in it:
             i0, j0 = int(i0), int(j0)
             t0 = time.perf_counter()
-            dev = _tile_body(model, spec, x_all, z_all, i0, j0, b, symmetric)
+            dev = _tile_body(model, spec, x_all, z_all, i0, j0, b, symmetric,
+                             maps)
             t_dispatch += time.perf_counter() - t0
             entries += dev.numel()
             wq.push(i0, j0, dev)

@@ -10,7 +10,8 @@ one process (``parallel/mesh.py``) and the same call runs on every rank:
   tiles, padded to a multiple of ``size`` by repeating tile 0, and dealt
   round-robin: rank d computes ``chunk[d::size]``, each tile with
   ``gram._tile_body``, so a model that ``megakernel.match`` accepts runs
-  the CUDA megakernel on the card;
+  the CUDA megakernel on the card, on maps from one pre-pass per image
+  set on each rank;
 * each tile is copied into a [b, b] slot of the round's send buffer (an
   edge tile is short: the block is padded, never the data, since a zero
   image has zero variance and its arccos is 0/0), and one ``all_gather``
@@ -166,6 +167,8 @@ def compute_gram_sharded(model, X, Z=None, *, batch_size: int = 200,
     x_dev = gram._on_device(X, device)
     z_dev = x_dev if symmetric else gram._on_device(Z, device)
     spec = megakernel.match(model)
+    # each rank's pre-pass: the maps of the sets it tiles, once per call
+    maps = gram.set_maps(spec, x_dev, z_dev)
 
     def write(i0, j0, block):
         ni, nj = min(b, n1 - i0), min(b, n2 - j0)
@@ -216,7 +219,7 @@ def compute_gram_sharded(model, X, Z=None, *, batch_size: int = 200,
                            device=device)
         for k, (i0, j0) in enumerate(chunk[rank::size]):
             blk = gram._tile_body(model, spec, x_dev, z_dev, int(i0),
-                                  int(j0), b, symmetric)
+                                  int(j0), b, symmetric, maps)
             send[k, :blk.shape[0], :blk.shape[1]] = blk
         if mesh.group is None:
             gathered = send[None]

@@ -8,7 +8,7 @@ each batch of m new points costs
 
 * the [m, N] and [m, m] cross-covariance blocks, through the same tile
   path as every Gram (``parallel.gram._tile_body``: the CUDA megakernel for
-  the ConvNet-GP family),
+  the ConvNet-GP family, one pre-pass per image set),
 * one m-wide blocked forward solve and an [m, m] Cholesky on the card
   (O(N^2 m), not O((N + m)^3 / 3)),
 * one factor solve and float64 iterative refinement for the posterior,
@@ -61,7 +61,8 @@ from .chol_dist import (_blocked_residual_fn, _factor_for, _ir_solve,
                         variances_from_cross_host)
 from .device_large import _assemble_scaled, _matvec_scan, _scaled_tile
 from .mesh import Mesh, agree
-from .gram import _tile_body, compute_gram, compute_gram_diag, gram_in_memory
+from .gram import (_tile_body, compute_gram, compute_gram_diag,
+                   gram_in_memory, set_maps)
 
 __all__ = ["IncrementalGP"]
 
@@ -259,16 +260,19 @@ class IncrementalGP:
         s_new = 1.0 / np.sqrt(self._diag(z) + self._jitter_raw)
         s_z = torch.from_numpy(s_new.astype(np.float32)).to(self.device)
         x_old, s_old = self._x_dev[:n], self._s_dev[:n]
+        maps = set_maps(spec, x_old, z)      # the old set's and the new's
         w = torch.zeros((self._factor.n_pad, m), dtype=torch.float32,
                         device=self.device)
         for i0, j0 in scheduler.tile_offsets(n, m, b, False):
-            blk = _tile_body(self.model, spec, x_old, z, i0, j0, b, False)
+            blk = _tile_body(self.model, spec, x_old, z, i0, j0, b, False,
+                             maps)
             bi, bj = blk.shape
             w[i0:i0 + bi, j0:j0 + bj] = (blk * s_old[i0:i0 + bi, None]
                                          * s_z[None, j0:j0 + bj])
         c_s = torch.empty((m, m), dtype=torch.float32, device=self.device)
+        z_maps = None if maps is None else (maps[1], maps[1])
         for i0, j0 in scheduler.tile_offsets(m, m, b, True):
-            blk = _scaled_tile(self.model, spec, z, s_z, i0, j0, b)
+            blk = _scaled_tile(self.model, spec, z, s_z, i0, j0, b, z_maps)
             bi, bj = blk.shape
             c_s[i0:i0 + bi, j0:j0 + bj] = blk
             c_s[j0:j0 + bj, i0:i0 + bi] = blk.T

@@ -29,7 +29,7 @@ import torch
 
 from cnn_gp_tpu_torch import configs, kernels as K, settings
 from cnn_gp_tpu_torch.ops import boxfilter, megakernel
-from cnn_gp_tpu_torch.parallel.gram import _tile_body
+from cnn_gp_tpu_torch.parallel.gram import _tile_body, set_maps
 from cnn_gp_tpu_torch.utils import FP32_PEAK, resolve_device
 
 RELU_OPS = 38              # per pair and pixel: the arccos update (37
@@ -93,6 +93,7 @@ def measure(config_name: str, b: int, reps: int, samples: int,
                         device=device)
     spec = megakernel.match(model)
     on_card = device.type == "cuda"
+    maps = set_maps(spec, x)        # one pre-pass, as a Gram call has
 
     def window():
         """Seconds per tile over ``reps`` tiles."""
@@ -105,7 +106,7 @@ def measure(config_name: str, b: int, reps: int, samples: int,
             t0 = time.perf_counter()
         for k in range(reps):
             _tile_body(model, spec, x, x, b * (k % 4),
-                       b * ((k * 7 + 1) % 4), b, True)
+                       b * ((k * 7 + 1) % 4), b, True, maps)
         if on_card:
             end.record()
             torch.cuda.synchronize(device)
@@ -114,7 +115,7 @@ def measure(config_name: str, b: int, reps: int, samples: int,
 
     with torch.no_grad():
         for k in range(2):                   # warm-up
-            _tile_body(model, spec, x, x, 0, b * k, b, True)
+            _tile_body(model, spec, x, x, 0, b * k, b, True, maps)
         per_tile = [window() for _ in range(samples)]
     med = float(np.median(per_tile))
     ops = tile_ops(model, b, shape)

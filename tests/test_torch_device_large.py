@@ -42,7 +42,7 @@ def small_jax():
 
 
 def convnet_jax():
-    """Megakernel-shaped: tiles go through megakernel.gram_tile."""
+    """Megakernel-shaped: tiles go through megakernel.pair_tile."""
     return G.Sequential(G.Conv2d(3, var_weight=2.0, var_bias=0.5), G.ReLU(),
                         G.Conv2d(7, padding=0))
 
@@ -230,12 +230,12 @@ def test_classify_large_lpd_and_fused_scores(classified):
 
 def test_classify_large_launch_counts(monkeypatch):
     """Every tile of a megakernel-shaped model goes through
-    megakernel.gram_tile, once per tile: lower-manifest tiles, one full
+    megakernel.pair_tile, once per tile: lower-manifest tiles, one full
     sweep for the exact check, the sampled block-rows times the column
     blocks, and the cross tiles of the split."""
     calls = []
-    real = megakernel.gram_tile
-    monkeypatch.setattr(megakernel, "gram_tile",
+    real = megakernel.pair_tile
+    monkeypatch.setattr(megakernel, "pair_tile",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
     tm = from_jax_model(convnet_jax())
     n, b, nz = 40, 8, 12

@@ -37,7 +37,7 @@ def strided():
 
 
 def convnet():
-    """Megakernel-shaped: tiles go through megakernel.gram_tile."""
+    """Megakernel-shaped: tiles go through megakernel.pair_tile."""
     return G.Sequential(G.Conv2d(3, var_weight=2.0, var_bias=0.5), G.ReLU(),
                         G.Conv2d(3, var_weight=1.5, var_bias=0.1), G.ReLU(),
                         G.Conv2d(14, padding=0))
@@ -54,10 +54,10 @@ def scaled_err(got, want):
 
 @pytest.fixture()
 def tile_calls(monkeypatch):
-    """Counts megakernel.gram_tile calls (on the card each is a launch)."""
+    """Counts megakernel.pair_tile calls (on the card each is a launch)."""
     calls = []
-    real = megakernel.gram_tile
-    monkeypatch.setattr(megakernel, "gram_tile",
+    real = megakernel.pair_tile
+    monkeypatch.setattr(megakernel, "pair_tile",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
     return calls
 

@@ -30,7 +30,7 @@ def strided(M):
 
 
 def convnet(M):
-    """Megakernel-shaped: goes through megakernel.gram_tile."""
+    """Megakernel-shaped: goes through megakernel.pair_tile."""
     return M.Sequential(M.Conv2d(3, var_weight=2.0, var_bias=0.5), M.ReLU(),
                         M.Conv2d(3, var_weight=1.5, var_bias=0.1), M.ReLU(),
                         M.Conv2d(14, padding=0))
@@ -124,11 +124,11 @@ def test_diag_of_matched_model_reads_the_prepass(data, monkeypatch,
 
 
 def test_tile_dispatch(data, monkeypatch):
-    """Megakernel-shaped models send every full tile to gram_tile; the
+    """Megakernel-shaped models send every full tile to pair_tile; the
     diagonal-only path and other models send none."""
     calls = []
-    orig = megakernel.gram_tile
-    monkeypatch.setattr(megakernel, "gram_tile",
+    orig = megakernel.pair_tile
+    monkeypatch.setattr(megakernel, "pair_tile",
                         lambda *a, **k: calls.append(1) or orig(*a, **k))
     x, z = data
     got = gram_in_memory(convnet(T), x, z, device="cpu", batch_size=B,

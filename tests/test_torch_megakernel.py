@@ -320,8 +320,8 @@ def test_cuda_path_launches_prepass_then_pair(fake_lib, monkeypatch):
     assert pre_x[3:8] == (4, 3, 8, 3, 2) and pre_z[3:8] == (5, 3, 8, 3, 2)
     assert pair[:5] == (x.data_ptr(), z.data_ptr(), scratch[0].data_ptr(),
                         scratch[1].data_ptr(), mask.data_ptr())
-    assert pair[7:13] == (4, 5, 3, 8, 3, 2)
-    assert pair[13:15] == (1.0 / 64, 0.0)
+    assert pair[7:15] == (4, 5, 4, 5, 3, 8, 3, 2)     # ldx, ldz: the tile's
+    assert pair[15:17] == (1.0 / 64, 0.0)
     assert out.shape == (4, 5) and out.dtype == torch.float32
     assert (tmk.launches, tmk.prepass_launches) == (before[0] + 1,
                                                     before[1] + 2)

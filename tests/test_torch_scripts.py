@@ -26,7 +26,7 @@ from cnn_gp_tpu.parallel import classify_device_large as jlarge
 from cnn_gp_tpu.parallel import gram_in_memory as jgram
 from cnn_gp_tpu_torch import Conv2d, ReLU, Sequential, configs
 from cnn_gp_tpu_torch.data import DatasetFromConfig
-from cnn_gp_tpu_torch.parallel.gram import _tile_body
+from cnn_gp_tpu_torch.parallel.gram import _tile_body, set_maps
 from cnn_gp_tpu_torch.scripts import (cifar_sweep, make_fake_dataset,
                                       model_selection, serving_bench,
                                       solver_validation)
@@ -203,9 +203,10 @@ def test_cifar_sweep_rows_and_tile(capsys):
     x = np.random.RandomState(0).rand(4 * b, 1, 28, 28).astype(np.float32)
     model = configs.load("synthetic").initial_model
     from cnn_gp_tpu_torch.ops import megakernel
+    spec, tx = megakernel.match(model), torch.as_tensor(x)
     with torch.no_grad():
-        got = _tile_body(model, megakernel.match(model), torch.as_tensor(x),
-                         torch.as_tensor(x), 0, b, b, True).numpy()
+        got = _tile_body(model, spec, tx, tx, 0, b, b, True,
+                         set_maps(spec, tx)).numpy()
     want = np.asarray(_tile_jit(jconfigs.load("synthetic").initial_model,
                                 x, x, 0, b, b, True, jsettings.snapshot()))
     assert np.abs(got - want).max() <= TOL * np.abs(want).max()
