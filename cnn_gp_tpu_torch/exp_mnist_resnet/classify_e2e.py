@@ -62,7 +62,7 @@ def run(config, *, datasets_path: str, device, batch_size: int = 128,
               f"{info['refinements']} refinements; "
               f"log evidence {info['log_evidence']:.6g}; "
               f"timings {info['timings_s']}")
-        if save_posterior and (mesh is None or mesh.rank == 0):
+        if save_posterior and multihost.is_root(mesh):
             from cnn_gp_tpu_torch.serving import save_posterior as save
             out = save(save_posterior, train_x=dataset.train.images,
                        alpha=info["alpha"], scalings=info["scalings"],
@@ -146,8 +146,7 @@ def main(argv=None):
     if a.coordinator_address and not a.large:
         p.error("--coordinator_address needs --large (the row-sharded "
                 "factor)")
-    device, mesh = multihost.join_from_flags(a)
-    try:
+    with multihost.grouped(a) as (device, mesh):
         run(configs.load(a.config), datasets_path=a.datasets_path,
             device=device, batch_size=a.batch_size,
             jitter=a.jitter, refine=a.refine, variances=a.variances,
@@ -157,8 +156,6 @@ def main(argv=None):
             residual_accept_frac=a.residual_accept_frac,
             save_posterior=a.save_posterior, config_name=a.config,
             mesh=mesh)
-    finally:
-        multihost.shutdown()
 
 
 if __name__ == "__main__":

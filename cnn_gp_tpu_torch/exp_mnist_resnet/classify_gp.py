@@ -233,15 +233,12 @@ def main(argv=None):
     if a.coordinator_address and a.solver != "chol_dist":
         p.error("--coordinator_address needs --solver=chol_dist (the "
                 "row-sharded factor)")
-    device, mesh = multihost.join_from_flags(a)
-    try:
+    with multihost.grouped(a) as (device, mesh):
         run(configs.load(a.config), a.in_path,
             datasets_path=a.datasets_path, device=device, jitter=a.jitter,
             solver=a.solver, variances=a.variances, evidence=a.evidence,
             lpd=a.lpd, stream=a.stream, store_backend=a.store_backend,
             mesh=mesh)
-    finally:
-        multihost.shutdown()
 
 
 if __name__ == "__main__":

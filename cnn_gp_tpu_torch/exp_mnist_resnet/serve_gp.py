@@ -115,17 +115,16 @@ def main(argv=None):
                    help="torch device to serve on")
     multihost.add_group_flags(p)
     a = p.parse_args(argv)
-    device, mesh = multihost.join_from_flags(a)
     try:
-        run(a.config, a.posterior, datasets_path=a.datasets_path,
-            device=device, batch_size=a.batch_size,
-            variances=a.variances, block=a.block,
-            factor_cache=a.factor_cache,
-            allow_settings_mismatch=a.allow_settings_mismatch, mesh=mesh)
+        with multihost.grouped(a) as (device, mesh):
+            run(a.config, a.posterior, datasets_path=a.datasets_path,
+                device=device, batch_size=a.batch_size,
+                variances=a.variances, block=a.block,
+                factor_cache=a.factor_cache,
+                allow_settings_mismatch=a.allow_settings_mismatch,
+                mesh=mesh)
     except ConfigMismatch as e:
         raise SystemExit(f"serve_gp: {e}") from None
-    finally:
-        multihost.shutdown()
 
 
 if __name__ == "__main__":

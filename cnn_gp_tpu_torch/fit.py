@@ -55,7 +55,7 @@ from .kernels import apply_kernel
 from .parallel import scheduler
 from .parallel.chol_dist import _factor_for, _mesh_device
 from .parallel.device_large import _assemble_scaled, _matvec_scan
-from .parallel.mesh import agree, broadcast_array
+from .parallel.mesh import agree, broadcast_array, is_root
 from .parallel.gram import _on_device, compute_gram_diag, gram_in_memory
 
 __all__ = ["neg_marginal_log_likelihood", "fit",
@@ -71,6 +71,9 @@ _POSITIVE_LEAVES = ("var_weight", "var_bias")
 # Exact zero (Conv2d's var_bias default) has no log; the floor is
 # negligible against any kernel scale and keeps the leaf optimisable.
 _POSITIVE_FLOOR = 1e-12
+# why fit_large refuses a rank group with exact gradients
+MESH_NEEDS_PROBED = ("mesh= row-shards the probed path's factor; "
+                     "grad='exact' solves on the host")
 
 
 def _is_positive(key: str) -> bool:
@@ -405,7 +408,7 @@ class ProbedNMLL:
             rnorm = np.linalg.norm(rs, axis=0)
             rnorm[rnorm == 0] = 1.0
             a_s = self.factor.solve(rs.astype(np.float32)).astype(np.float64)
-            root = self.mesh is None or self.mesh.rank == 0
+            root = is_root(self.mesh)
             for _ in range(self.refine_iters):
                 r = None
                 if root:
@@ -487,8 +490,7 @@ def fit_large(model, x, y, steps: int = 30,
     if grad not in ("exact", "probed"):
         raise ValueError(f"grad must be 'exact' or 'probed', got {grad!r}")
     if mesh is not None and grad != "probed":
-        raise ValueError("mesh= row-shards the probed path's factor; "
-                         "grad='exact' solves on the host")
+        raise ValueError(MESH_NEEDS_PROBED)
     if learning_rate is None:
         learning_rate = 0.1 if grad == "exact" else 0.05
     device = _mesh_device(device, mesh)

@@ -60,6 +60,7 @@ import torch.distributed as dist
 
 from .. import settings
 from .mesh import (Mesh, agree, all_gather_rows, all_reduce_sum_, any_rank,
+                   is_root,
                    broadcast_, broadcast_array, make_mesh, row_span)
 
 __all__ = ["CardFactor", "ShardedFactor", "cholesky_sharded",
@@ -850,10 +851,6 @@ def cholesky_solve_sharded(k: np.ndarray, rhs: np.ndarray,
     return f.solve(np.asarray(rhs, np.float32))
 
 
-def _is_root(mesh: Optional[Mesh]) -> bool:
-    return mesh is None or mesh.rank == 0
-
-
 def _root_residual(residual, mesh: Optional[Mesh]):
     """``residual`` evaluated on rank 0 alone, its ``(r, rel)`` handed to
     every rank: the refinement stops are then taken from the same bits on
@@ -889,7 +886,7 @@ def chol_solve_dist(kxx: Optional[np.ndarray], y: np.ndarray,
     n = y64.shape[0]
     factor = _factor_for(n, block, device, mesh)
     s = ys = None
-    if _is_root(mesh):
+    if is_root(mesh):
         kxx = np.asarray(kxx)
         # Jacobi equilibration in float64, in place: D^-1/2 (K+jI) D^-1/2
         if kxx.dtype != np.float64:
@@ -913,7 +910,7 @@ def chol_solve_dist(kxx: Optional[np.ndarray], y: np.ndarray,
 
     # jitter is already folded into kxx's diagonal (scaled space)
     residual = _root_residual(
-        _blocked_residual_fn(kxx, ys, 0.0) if _is_root(mesh) else None, mesh)
+        _blocked_residual_fn(kxx, ys, 0.0) if is_root(mesh) else None, mesh)
 
     def precond(r64):
         return factor.solve(r64.astype(np.float32)).astype(np.float64)
@@ -936,7 +933,7 @@ def variances_from_cross_host(factor, s: np.ndarray,
     other ranks may pass None) and every rank returns rank 0's
     variances."""
     mesh = getattr(factor, "mesh", None)
-    root = _is_root(mesh)
+    root = is_root(mesh)
     n = factor.n
     nz = len(kzx) if root else None
     if mesh is not None:
@@ -999,7 +996,7 @@ def chol_solve_ir32(k32: Optional[np.ndarray], y: np.ndarray,
     n = y64.shape[0]
     factor = _factor_for(n, block, device, mesh)
     d64 = None
-    if _is_root(mesh):
+    if is_root(mesh):
         assert k32.dtype == np.float32, k32.dtype
         d64 = (np.ascontiguousarray(np.diagonal(k32)).astype(np.float64)
                + jitter)
@@ -1017,7 +1014,7 @@ def chol_solve_ir32(k32: Optional[np.ndarray], y: np.ndarray,
 
     residual = _root_residual(
         _blocked_residual_fn(k32, y64, jitter, io_rows=io_rows)
-        if _is_root(mesh) else None, mesh)
+        if is_root(mesh) else None, mesh)
     a, rel, iters = _ir_solve(_scaled_precond(factor, s), residual, y64,
                               refine_iters, tol)
     if return_factor:
@@ -1043,7 +1040,7 @@ def chol_solve_dist_from_store(store, name: str, y: np.ndarray,
     alone reads the store (the other ranks' ``store`` is never touched)."""
     from ..ops.solve import symmetrize_from_upper
     k32 = holes = None
-    if _is_root(mesh):
+    if is_root(mesh):
         k32 = symmetrize_from_upper(store.read(name))   # ONE float32 copy
         holes = bool(check_finite and np.isnan(k32).any())
     if mesh is not None:
@@ -1102,7 +1099,7 @@ def chol_solve_stream_from_store(store, name: str, y: np.ndarray,
 
     Returns ``(a, rel, iters)`` or, with ``return_factor``,
     ``(a, rel, iters, factor, s)`` as `chol_solve_ir32`."""
-    root = _is_root(mesh)
+    root = is_root(mesh)
     y64 = np.asarray(y, np.float64)
     n, err = len(y64), None
     if root:

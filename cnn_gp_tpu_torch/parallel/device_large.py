@@ -52,7 +52,7 @@ from ..ops import solve as solve_ops
 from . import scheduler
 from .chol_dist import _factor_for, _mesh_device
 from .gram import _on_device, _tile_body, compute_gram_diag, set_maps
-from .mesh import Mesh, agree, broadcast_array, row_span
+from .mesh import Mesh, agree, broadcast_array, is_root, row_span
 
 __all__ = ["classify_device_large", "gram_matvec_regen", "scores_regen",
            "make_scores_fn", "rebuild_factor", "variances_from_factor"]
@@ -415,7 +415,7 @@ def classify_device_large(model, train_x, train_y, *splits,
         raise ValueError(f"residual_max_row_gate must be > 1, got "
                          f"{residual_max_row_gate}")
     device = _mesh_device(device, mesh)
-    root = mesh is None or mesh.rank == 0
+    root = is_root(mesh)
     if residual_sample_seed is None and root:
         residual_sample_seed = int(np.random.SeedSequence().entropy
                                    % (2 ** 32))

@@ -36,7 +36,7 @@ from ..utils import resolve_device
 
 __all__ = ["Mesh", "make_mesh", "TILE_AXIS", "row_span", "local_device",
            "all_gather_rows", "all_reduce_sum_", "any_rank", "broadcast_",
-           "broadcast_array", "agree", "barrier"]
+           "broadcast_array", "agree", "barrier", "is_root"]
 
 TILE_AXIS = "tiles"   # the JAX mesh's axis name; the rank group has one
 
@@ -49,6 +49,12 @@ class Mesh:
     rank: int
     size: int
     device: torch.device
+
+
+def is_root(mesh: Optional[Mesh]) -> bool:
+    """Whether this process writes files and prints summaries: rank 0 of
+    ``mesh``, or the only process when there is no mesh."""
+    return mesh is None or mesh.rank == 0
 
 
 def local_device(device="cuda", rank: int = 0) -> torch.device:

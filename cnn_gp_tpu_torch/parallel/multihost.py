@@ -22,6 +22,7 @@ Launch recipe (wired into ``exp_mnist_resnet/save_kernel.py``):
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 from typing import Optional, Tuple
@@ -29,10 +30,10 @@ from typing import Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from .mesh import local_device
+from .mesh import is_root, local_device
 
 __all__ = ["initialize", "worker_identity", "shutdown", "add_group_flags",
-           "join_from_flags"]
+           "join_from_flags", "grouped", "is_root"]
 
 
 def initialize(coordinator_address: Optional[str] = None,
@@ -109,3 +110,16 @@ def join_from_flags(a):
     device = initialize(a.coordinator_address, a.num_processes,
                         a.process_id, device=a.device)
     return device, make_mesh(device=device)
+
+
+@contextlib.contextmanager
+def grouped(a):
+    """``join_from_flags(a)`` for a driver's body: yields ``(device,
+    mesh)`` and leaves the group when the body ends, however it ends.
+    Inside, ``is_root(mesh)`` says whether this process writes files and
+    prints the summary."""
+    device, mesh = join_from_flags(a)
+    try:
+        yield device, mesh
+    finally:
+        shutdown()

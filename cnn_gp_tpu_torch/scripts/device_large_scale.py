@@ -17,6 +17,16 @@ Grams and the float64 scipy solve on the host, feasible up to ~16k.
 Serving protocol: add ``--save_posterior=p.npz`` to a classify run, then
 time the solve-free serving in a fresh process with
 ``--serve_posterior=p.npz`` and the same data flags.
+
+With ``--coordinator_address`` (``--num_processes`` / ``--process_id``, or
+``env`` under torchrun) the factor is row-sharded over the group's ranks
+(``ShardedFactor``), as the JAX script spreads it over every local device;
+every rank prints its report, and rank 0 alone writes the files and runs
+``--check_scipy``:
+
+    torchrun --nproc_per_node=4 \\
+        -m cnn_gp_tpu_torch.scripts.device_large_scale \\
+        --coordinator_address=env --config=mnist_paper_convnet_gp ...
 """
 
 import argparse
@@ -29,8 +39,9 @@ from cnn_gp_tpu_torch import configs, settings
 from cnn_gp_tpu_torch.data import synthetic_arrays
 from cnn_gp_tpu_torch.ops import solve
 from cnn_gp_tpu_torch.parallel import (classify_device_large,
-                                       compute_gram_diag, gram_in_memory)
-from cnn_gp_tpu_torch.utils import add_bool_flag, resolve_device
+                                       compute_gram_diag, gram_in_memory,
+                                       multihost)
+from cnn_gp_tpu_torch.utils import add_bool_flag
 
 
 def _peak_gb(device) -> str:
@@ -45,8 +56,12 @@ def _reset_peak(device) -> None:
         torch.cuda.reset_peak_memory_stats(device)
 
 
-def run(a, device) -> dict:
+def run(a, device, mesh=None) -> dict:
+    """Classify (or, with ``--serve_posterior``, serve) the synthetic
+    splits on ``device``; ``mesh`` row-shards the factor over a rank
+    group, whose rank 0 alone writes files and runs the scipy check."""
     settings.disable_tf32()
+    root = multihost.is_root(mesh)
     config = configs.load(a.config)
     model = config.initial_model
     tr_x, tr_y, te_x, te_y = synthetic_arrays(
@@ -59,7 +74,7 @@ def run(a, device) -> dict:
         splits = [(va_x, va_y), (te_x, te_y)]
 
     if a.serve_posterior:
-        return _serve(a, model, splits, device)
+        return _serve(a, model, splits, device, mesh)
 
     _reset_peak(device)
     t0 = time.perf_counter()
@@ -69,7 +84,7 @@ def run(a, device) -> dict:
         residual_accept_frac=a.residual_accept_frac,
         residual_sample_seed=(a.residual_sample_seed
                               if a.residual_sample_seed >= 0 else None),
-        variances=a.variances, device=device)
+        variances=a.variances, device=device, mesh=mesh)
     wall = time.perf_counter() - t0
     est = "~" if info["rel_residual_estimated"] else ""
     sampled = (f"sampled {info['rel_residual_sampled']:.2e} "
@@ -88,9 +103,9 @@ def run(a, device) -> dict:
         print(f"phase {phase}: {seconds:.3f} s, peak card memory "
               + ("n/a" if peak is None else f"{peak / 1e9:.3f} GB"),
               flush=True)
-    if a.out_predictions:
+    if a.out_predictions and root:
         np.save(a.out_predictions, np.concatenate(info["predictions"]))
-    if a.save_posterior:
+    if a.save_posterior and root:
         from cnn_gp_tpu_torch.serving import save_posterior
         out = save_posterior(a.save_posterior, train_x=tr_x,
                              alpha=info["alpha"], scalings=info["scalings"],
@@ -100,7 +115,7 @@ def run(a, device) -> dict:
               f"  python -m cnn_gp_tpu_torch.scripts.device_large_scale "
               f"--serve_posterior={out} <same data flags>", flush=True)
 
-    if a.check_scipy:
+    if a.check_scipy and root:
         t0 = time.perf_counter()
         kxx = np.asarray(gram_in_memory(model, tr_x, device=device,
                                         batch_size=a.batch_size,
@@ -131,10 +146,11 @@ def run(a, device) -> dict:
     return {"accs": accs, "info": info}
 
 
-def _serve(a, model, splits, device) -> dict:
+def _serve(a, model, splits, device, mesh=None) -> dict:
     """Serving-mode timing: load the O(N) posterior and score the same
     synthetic splits in this process with no solve (plus variances after
-    the solve-free factor rebuild with --variances)."""
+    the solve-free factor rebuild with --variances, row-sharded over
+    ``mesh`` when given)."""
     from cnn_gp_tpu_torch.serving import GPPredictor, load_posterior
 
     t0 = time.perf_counter()
@@ -146,7 +162,7 @@ def _serve(a, model, splits, device) -> dict:
     if a.variances:
         _reset_peak(device)
         t0 = time.perf_counter()
-        predictor.prepare_variances(block=a.block)
+        predictor.prepare_variances(block=a.block, mesh=mesh)
         print(f"factor rebuilt (no solve) in "
               f"{time.perf_counter() - t0:.1f}s, peak card memory "
               f"{_peak_gb(device)}", flush=True)
@@ -216,8 +232,10 @@ def main(argv=None):
                         "regenerate them)")
     p.add_argument("--device", default="cuda",
                    help="torch device to compute on")
+    multihost.add_group_flags(p)
     a = p.parse_args(argv)
-    return run(a, resolve_device(a.device))
+    with multihost.grouped(a) as (device, mesh):
+        return run(a, device, mesh=mesh)
 
 
 if __name__ == "__main__":

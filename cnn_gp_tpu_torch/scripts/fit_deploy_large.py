@@ -13,6 +13,12 @@ and standard error).
 
     python -m cnn_gp_tpu_torch.scripts.fit_deploy_large --n_fit=4096 \\
         --n_large=50000
+
+With ``--coordinator_address`` (``--num_processes`` / ``--process_id``, or
+``env`` under torchrun) the probed fit's factor and each deploy row's
+factor are row-sharded over the group's ranks, as the JAX script spreads
+them over every local device; every rank takes the same steps and prints
+its rows, and rank 0 alone writes ``--save_fitted``.
 """
 
 import argparse
@@ -24,12 +30,11 @@ from cnn_gp_tpu_torch import settings
 from cnn_gp_tpu_torch.data import hard_mnist
 from cnn_gp_tpu_torch.fit import fit_large, load_leaves, save_leaves
 from cnn_gp_tpu_torch.ops import solve
-from cnn_gp_tpu_torch.parallel import classify_device_large
+from cnn_gp_tpu_torch.parallel import classify_device_large, multihost
 from cnn_gp_tpu_torch.scripts.fit_paper_scale import paper_convnet
-from cnn_gp_tpu_torch.utils import resolve_device
 
 
-def run(a, device) -> dict:
+def run(a, device, mesh=None) -> dict:
     settings.disable_tf32()
     # the fit split and the deploy split come from the same hard task
     # (train seed 1, held-out seed 2 inside hard_mnist)
@@ -49,12 +54,12 @@ def run(a, device) -> dict:
             learning_rate=a.learning_rate, batch_size=a.batch_size,
             verbose=True, grad="probed", probes=a.probes,
             tile_fraction=a.tile_fraction, refine_iters=0,
-            block=a.fit_block, device=device)
+            block=a.fit_block, device=device, mesh=mesh)
         print(f"fit at n={a.n_fit}: {a.steps} steps in "
               f"{time.perf_counter() - t0:.1f}s  nmll {losses[0]:.6g} -> "
               f"best {np.min(losses):.6g} (trajectory: "
               f"{np.round(losses, 1).tolist()})", flush=True)
-        if a.save_fitted:
+        if a.save_fitted and multihost.is_root(mesh):
             save_leaves(fitted, a.save_fitted)
             print(f"fitted leaves saved to {a.save_fitted}", flush=True)
 
@@ -69,7 +74,7 @@ def run(a, device) -> dict:
         accs, info = classify_device_large(
             model, tr_x, tr_y, (te_x, te_y), batch_size=a.batch_size,
             block=a.block, jitter=a.jitter, variances=True, verbose=False,
-            device=device)
+            device=device, mesh=mesh)
         lpd, lpd_se, _ = solve.gaussian_lpd(
             info["scores"][0], info["variances"][0], te_y,
             info["jitter_raw"])
@@ -124,8 +129,10 @@ def main(argv=None):
                    help="deploy rows to run (comma list)")
     p.add_argument("--device", default="cuda",
                    help="torch device to compute on")
+    multihost.add_group_flags(p)
     a = p.parse_args(argv)
-    return run(a, resolve_device(a.device))
+    with multihost.grouped(a) as (device, mesh):
+        return run(a, device, mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -14,6 +14,13 @@ train log evidence and held-out log predictive density are printed for
 
     python -m cnn_gp_tpu_torch.scripts.fit_paper_scale --n_train=2048 \\
         --steps=30
+
+With ``--coordinator_address`` (``--num_processes`` / ``--process_id``, or
+``env`` under torchrun) and ``--grad=probed`` the fit's factor is
+row-sharded over the group's ranks, as the JAX script spreads it over
+every local device; every rank takes the same steps and prints its rows,
+and rank 0 alone writes ``--save_fitted`` and prints the summary.
+``--grad=exact`` solves on the host and refuses a group.
 """
 
 import argparse
@@ -23,10 +30,11 @@ import numpy as np
 
 from cnn_gp_tpu_torch import Conv2d, ReLU, Sequential, settings
 from cnn_gp_tpu_torch.data import hard_mnist
-from cnn_gp_tpu_torch.fit import fit_large, save_leaves
+from cnn_gp_tpu_torch.fit import MESH_NEEDS_PROBED, fit_large, save_leaves
 from cnn_gp_tpu_torch.ops import solve
-from cnn_gp_tpu_torch.parallel import compute_gram_diag, gram_in_memory
-from cnn_gp_tpu_torch.utils import add_bool_flag, resolve_device
+from cnn_gp_tpu_torch.parallel import (compute_gram_diag, gram_in_memory,
+                                       multihost)
+from cnn_gp_tpu_torch.utils import add_bool_flag
 
 __all__ = ["paper_convnet", "hard_mnist", "evaluate", "main"]
 
@@ -79,8 +87,9 @@ def _config_units(fitted):
     return vws, [float(m.var_bias.detach()) for m in convs]
 
 
-def run(a, device) -> dict:
+def run(a, device, mesh=None) -> dict:
     settings.disable_tf32()
+    root = multihost.is_root(mesh)
     tr_x, tr_y, te_x, te_y = hard_mnist(a.n_train, a.n_test,
                                         flip_frac=a.label_noise)
     y_fit = solve.one_hot_targets(tr_y, dtype=np.float32)
@@ -107,7 +116,7 @@ def run(a, device) -> dict:
         steps=a.steps, learning_rate=a.learning_rate, jitter=a.jitter,
         batch_size=b, verbose=True, grad=a.grad, probes=a.probes,
         block=a.block, tile_fraction=a.tile_fraction,
-        refine_iters=a.refine_iters, device=device)
+        refine_iters=a.refine_iters, device=device, mesh=mesh)
     print(f"fit_large: {a.steps} steps in {time.perf_counter() - t0:.1f}s"
           f"  nmll {losses[0]:.4f} -> {losses[-1]:.4f}", flush=True)
     vws, vbs = _config_units(fitted)
@@ -115,14 +124,14 @@ def run(a, device) -> dict:
           f"{np.round(vws, 3).tolist()}", flush=True)
     print(f"fitted per-layer var_bias: {np.round(vbs, 3).tolist()}",
           flush=True)
-    if a.save_fitted:
+    if a.save_fitted and root:
         save_leaves(fitted, a.save_fitted)
         print(f"fitted leaves saved to {a.save_fitted} (reload with "
               f"load_leaves onto the same architecture, in either package)",
               flush=True)
     report("fitted", fitted)
 
-    if not a.timing_only:
+    if not a.timing_only and root:
         init, paper, fit_row = rows["init"], rows["paper"], rows["fitted"]
         d_lpd = fit_row[2] - init[2]
         se = max(float(np.hypot(fit_row[3], init[3])), 1e-12)
@@ -180,8 +189,13 @@ def main(argv=None):
                    help="write the fitted leaves to this .npz")
     p.add_argument("--device", default="cuda",
                    help="torch device to compute on")
+    multihost.add_group_flags(p)
     a = p.parse_args(argv)
-    return run(a, resolve_device(a.device))
+    if a.coordinator_address and a.grad != "probed":
+        p.error(f"--coordinator_address needs --grad=probed: "
+                f"{MESH_NEEDS_PROBED}")
+    with multihost.grouped(a) as (device, mesh):
+        return run(a, device, mesh=mesh)
 
 
 if __name__ == "__main__":

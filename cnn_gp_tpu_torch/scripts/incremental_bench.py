@@ -17,6 +17,12 @@ and peak card memory of each step, then one JSON line.
 The default ``--config=mnist_as_tf`` is the ResNet-32 on the layer
 kernels: at 16k a long run on the card.  Every clock read follows a device
 synchronisation.
+
+With ``--coordinator_address`` (``--num_processes`` / ``--process_id``, or
+``env`` under torchrun) both factors are row-sharded over the group's
+ranks, as the JAX script spreads them over every local device; every rank
+makes the same calls and prints its lines, and rank 0 alone the JSON
+line.
 """
 
 import argparse
@@ -28,15 +34,14 @@ import torch
 
 from cnn_gp_tpu_torch import configs, settings
 from cnn_gp_tpu_torch.data import synthetic_arrays
-from cnn_gp_tpu_torch.parallel import IncrementalGP
-from cnn_gp_tpu_torch.utils import resolve_device
+from cnn_gp_tpu_torch.parallel import IncrementalGP, multihost
 
 
 def _phases(info) -> dict:
     return {k: round(v, 3) for k, v in info["timings_s"].items()}
 
 
-def run(a, device) -> dict:
+def run(a, device, mesh=None) -> dict:
     settings.disable_tf32()
     on_card = device.type == "cuda"
     config = configs.load(a.config)
@@ -48,7 +53,8 @@ def run(a, device) -> dict:
 
     def fit(batches):
         gp = IncrementalGP(model, capacity=n + m, batch_size=a.batch_size,
-                           block=a.block, jitter=a.jitter, device=device)
+                           block=a.block, jitter=a.jitter, device=device,
+                           mesh=mesh)
         walls, peaks, infos = [], [], []
         for bx, by in batches:
             if on_card:
@@ -107,7 +113,8 @@ def run(a, device) -> dict:
            "add_phases_s": [i["timings_s"] for i in infos[1:]],
            "refit_phases_s": infos_f[-1]["timings_s"],
            "pred_agreement": agree, "evidence_rel_diff": ev_rel}
-    print(json.dumps(out), flush=True)
+    if multihost.is_root(mesh):
+        print(json.dumps(out), flush=True)
     return out
 
 
@@ -131,8 +138,10 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0, help="synthetic data seed")
     p.add_argument("--device", default="cuda",
                    help="torch device to compute on")
+    multihost.add_group_flags(p)
     a = p.parse_args(argv)
-    return run(a, resolve_device(a.device))
+    with multihost.grouped(a) as (device, mesh):
+        return run(a, device, mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -14,6 +14,12 @@ digits task of ``scripts/make_fake_dataset.py`` (``data.digits`` with
 Prints one line per model (evidence in total and per training point, test
 accuracy, seconds with the device synchronised before each clock read),
 the ranking, then one JSON line.
+
+With ``--coordinator_address`` (``--num_processes`` / ``--process_id``, or
+``env`` under torchrun) each model's factor is row-sharded over the
+group's ranks, as the JAX script spreads it over every local device;
+every rank prints its lines per model, and rank 0 alone the ranking and
+the JSON line.
 """
 
 import argparse
@@ -23,8 +29,8 @@ import numpy as np
 
 from cnn_gp_tpu_torch import configs, settings
 from cnn_gp_tpu_torch.data import digits
-from cnn_gp_tpu_torch.parallel import classify_device_large
-from cnn_gp_tpu_torch.utils import resolve_device, synced_clock
+from cnn_gp_tpu_torch.parallel import classify_device_large, multihost
+from cnn_gp_tpu_torch.utils import synced_clock
 
 MODELS = "mnist_paper_convnet_gp,mnist_paper_residual_cnn_gp,mnist_as_tf"
 
@@ -37,7 +43,7 @@ def task(n_train: int, n_test: int):
             te_x8[:, None].astype(np.float32) / 255.0, te_y)
 
 
-def run(a, device) -> dict:
+def run(a, device, mesh=None) -> dict:
     settings.disable_tf32()
     tr_x, tr_y, te_x, te_y = task(a.n_train, a.n_test)
 
@@ -47,7 +53,8 @@ def run(a, device) -> dict:
         t0 = synced_clock(device)
         accs, info = classify_device_large(
             model, tr_x, tr_y, (te_x, te_y), batch_size=a.batch_size,
-            block=a.block, jitter=a.jitter, verbose=False, device=device)
+            block=a.block, jitter=a.jitter, verbose=False, device=device,
+            mesh=mesh)
         seconds = synced_clock(device) - t0
         ev = info["log_evidence"]
         rows.append({"config": name, "log_evidence": ev,
@@ -60,13 +67,16 @@ def run(a, device) -> dict:
 
     ranked = sorted(rows, key=lambda r: -r["log_evidence"])
     best = ranked[0]
-    print(f"\nevidence ranking: {' > '.join(r['config'] for r in ranked)}")
-    print(f"selected {best['config']} (test_acc {best['test_acc']:.4f}; "
-          f"best test_acc {max(r['test_acc'] for r in rows):.4f})")
     out = {"n_train": a.n_train, "n_test": a.n_test, "jitter": a.jitter,
            "rows": rows, "ranking": [r["config"] for r in ranked],
            "selected": best["config"]}
-    print(json.dumps(out), flush=True)
+    if multihost.is_root(mesh):
+        print(f"\nevidence ranking: "
+              f"{' > '.join(r['config'] for r in ranked)}")
+        print(f"selected {best['config']} (test_acc "
+              f"{best['test_acc']:.4f}; best test_acc "
+              f"{max(r['test_acc'] for r in rows):.4f})")
+        print(json.dumps(out), flush=True)
     return out
 
 
@@ -86,8 +96,10 @@ def main(argv=None):
                         "input shape)")
     p.add_argument("--device", default="cuda",
                    help="torch device to compute on")
+    multihost.add_group_flags(p)
     a = p.parse_args(argv)
-    return run(a, resolve_device(a.device))
+    with multihost.grouped(a) as (device, mesh):
+        return run(a, device, mesh=mesh)
 
 
 if __name__ == "__main__":

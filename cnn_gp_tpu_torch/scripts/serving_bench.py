@@ -15,6 +15,12 @@ median over the rounds.  Prints one JSON line.
 
     python -m cnn_gp_tpu_torch.scripts.serving_bench \\
         --config=mnist_paper_convnet_gp --n_train=16384
+
+With ``--coordinator_address`` (``--num_processes`` / ``--process_id``, or
+``env`` under torchrun) the solve's factor and the variance factor are
+row-sharded over the group's ranks, as the JAX script spreads them over
+every local device; every rank serves the same queries and prints its
+rates, and rank 0 alone prints the JSON line.
 """
 
 import argparse
@@ -24,10 +30,9 @@ import numpy as np
 
 from cnn_gp_tpu_torch import configs, settings
 from cnn_gp_tpu_torch.data import synthetic_arrays
-from cnn_gp_tpu_torch.parallel import classify_device_large
+from cnn_gp_tpu_torch.parallel import classify_device_large, multihost
 from cnn_gp_tpu_torch.serving import GPPredictor, Posterior, load_posterior
-from cnn_gp_tpu_torch.utils import (add_bool_flag, resolve_device,
-                                    synced_clock)
+from cnn_gp_tpu_torch.utils import add_bool_flag, synced_clock
 
 
 def median_rate(fn, make_z, rounds, batch, device):
@@ -53,15 +58,16 @@ def median_rate(fn, make_z, rounds, batch, device):
     return float(np.median(rates)), rates, pct
 
 
-def solve_posterior(a, model, shape, device) -> Posterior:
+def solve_posterior(a, model, shape, device, mesh=None) -> Posterior:
     """The synthetic training set (``--seed``) solved by
-    ``classify_device_large``: the posterior to serve."""
+    ``classify_device_large`` (row-sharded over ``mesh`` when given): the
+    posterior to serve."""
     tr_x, tr_y, te_x, te_y = synthetic_arrays(
         n_train=a.n_train, n_test=a.query_batch, shape=shape, seed=a.seed)
     t0 = synced_clock(device)
     _, info = classify_device_large(
         model, tr_x, tr_y, (te_x, te_y), batch_size=a.batch_size,
-        block=a.block, verbose=True, device=device)
+        block=a.block, verbose=True, device=device, mesh=mesh)
     seconds = synced_clock(device) - t0
     print(f"solved n={a.n_train} in {seconds:.1f}s (serving would normally "
           f"load this from a posterior artifact)")
@@ -78,7 +84,7 @@ def query_maker(a, shape):
     return lambda r: rng.rand(a.query_batch, *shape).astype(np.float32)
 
 
-def run(a, device) -> dict:
+def run(a, device, mesh=None) -> dict:
     settings.disable_tf32()
     config = configs.load(a.config)
     model = config.initial_model
@@ -88,7 +94,7 @@ def run(a, device) -> dict:
         post = load_posterior(a.posterior)
         print(f"loaded posterior: n={post.n}")
     else:
-        post = solve_posterior(a, model, shape, device)
+        post = solve_posterior(a, model, shape, device, mesh)
 
     pred = GPPredictor(model, post, batch_size=a.batch_size, device=device)
     qb = a.query_batch
@@ -104,7 +110,8 @@ def run(a, device) -> dict:
     if a.variances:
         t0 = synced_clock(device)
         pred.prepare_variances(block=a.block,
-                               factor_cache=a.factor_cache or None)
+                               factor_cache=a.factor_cache or None,
+                               mesh=mesh)
         prep = synced_clock(device) - t0
         print(f"prepare_variances"
               f"{' (factor_cache)' if a.factor_cache else ''}: {prep:.1f}s")
@@ -124,7 +131,8 @@ def run(a, device) -> dict:
         "prepare_variances_s": (round(prep, 3) if prep is not None
                                 else None),
     }
-    print(json.dumps(out), flush=True)
+    if multihost.is_root(mesh):
+        print(json.dumps(out), flush=True)
     return out
 
 
@@ -154,8 +162,10 @@ def main(argv=None):
                   "solve-free factor rebuild first)")
     p.add_argument("--device", default="cuda",
                    help="torch device to compute on")
+    multihost.add_group_flags(p)
     a = p.parse_args(argv)
-    return run(a, resolve_device(a.device))
+    with multihost.grouped(a) as (device, mesh):
+        return run(a, device, mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -198,11 +198,8 @@ def main(argv=None):
                    help="torch device to compute on")
     multihost.add_group_flags(p)
     a = p.parse_args(argv)
-    device, mesh = multihost.join_from_flags(a)
-    try:
+    with multihost.grouped(a) as (device, mesh):
         return run(a, device, mesh=mesh)
-    finally:
-        multihost.shutdown()
 
 
 if __name__ == "__main__":

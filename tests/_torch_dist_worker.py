@@ -9,8 +9,9 @@ world that does not end within its limit is killed and fails its test.
 The children import the port only, never jax.
 """
 
+import contextlib
 import datetime
-import multiprocessing
+import io
 import os
 import socket
 import time
@@ -47,26 +48,10 @@ def _child(rank, size, port, job_name, out_dir):
 
 def run_world(size, job_name, out_dir):
     """Run ``job_name`` on a gloo world of ``size`` ranks; return each
-    rank's saved arrays."""
-    ctx = multiprocessing.get_context("spawn")
-    port = free_port()
-    procs = [ctx.Process(target=_child,
-                         args=(r, size, port, job_name, out_dir))
-             for r in range(size)]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + JOIN_S
-    try:
-        for p in procs:
-            p.join(max(0.0, deadline - time.monotonic()))
-    finally:
-        hung = [p for p in procs if p.is_alive()]
-        for p in hung:
-            p.kill()
-            p.join()
-    assert not hung, f"{len(hung)} rank(s) of {size} hung"
-    codes = [p.exitcode for p in procs]
-    assert codes == [0] * size, f"rank exit codes {codes}"
+    rank's saved arrays.  A rank that fails, or a world that outlasts
+    JOIN_S, fails the call (``entry.spawn_ranks``)."""
+    from cnn_gp_tpu_torch.entry import spawn_ranks
+    spawn_ranks(size, _child, job_name, out_dir, limit_s=JOIN_S)
     out = []
     for r in range(size):
         with np.load(os.path.join(out_dir, f"rank{r}.npz")) as f:
@@ -432,3 +417,35 @@ def chol_sharded(mesh, out_dir):
         make_model(1.0, 0.5, learnable=True), x, y, steps=3, batch_size=16,
         grad="probed", probes=8, block=16, mesh=mesh)
     return res
+
+
+# -- the dry run (tests/test_torch_entry.py) --------------------------------
+
+def dryrun(mesh, out_dir):
+    """``entry.dryrun_multichip`` as this rank of the running group: what
+    its sequence computed on this rank."""
+    from cnn_gp_tpu_torch import entry
+    got = {}
+    body = entry._dryrun_rank
+
+    def record(*a, **k):
+        got.update(body(*a, **k))
+        return got
+
+    entry._dryrun_rank = record
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            assert entry.dryrun_multichip(mesh.size, device="cpu") is None
+    finally:
+        entry._dryrun_rank = body
+    got["summary"] = out.getvalue()
+    return {k: np.asarray(v) for k, v in got.items()}
+
+
+def failing_rank(rank, size, port):
+    """A rank for ``entry.spawn_ranks``: rank 1 fails at once, the others
+    wait as if in a collective that never completes."""
+    if rank == 1:
+        raise RuntimeError("rank 1 fails")
+    time.sleep(JOIN_S)

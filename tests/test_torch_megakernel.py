@@ -5,6 +5,7 @@ and against the port's ``apply_kernel``, and the wrapper's device rules.
 The CUDA kernel itself is checked on the card by tests/test_torch_cuda.py
 and chip_smoke.py."""
 
+import contextlib
 import hashlib
 import math
 
@@ -115,8 +116,10 @@ def test_reference_matches_jax_interpret(use_mask):
     """The port's plain version against the Pallas kernel in interpret
     mode (1e-5 of max|K|), and each of them against the float64 tile
     (1e-5 as well; both sit near 2e-7 of it).  A failure names the side
-    that moved: it prints both outputs' digests and each side's error
-    against the float64 tile."""
+    that moved: it prints both outputs' digests, each side's error
+    against the float64 tile, and the process state a test could leave
+    behind (the port's settings, torch's thread count, whether oneDNN is
+    there)."""
     x, z, mask = _pair(use_mask)
     want = np.asarray(jmk.gram_tile(jmk.match(small(G)), x, z, mask,
                                     rows_per_step=8, interpret=True))
@@ -128,10 +131,93 @@ def test_reference_matches_jax_interpret(use_mask):
     errs = {"jax": _scaled(want, exact), "port": _scaled(got, exact)}
     record = (f"sha256 jax {_digest(want)}, port {_digest(got)}; against "
               f"the float64 tile: jax {errs['jax']:.4e}, port "
-              f"{errs['port']:.4e}")
+              f"{errs['port']:.4e}; settings {T.settings.snapshot()}, "
+              f"torch threads {torch.get_num_threads()}, mkldnn "
+              f"{torch.backends.mkldnn.is_available()}")
     assert _scaled(got, want) < 1e-5, record
     for side, err in errs.items():
         assert err < 1e-5, f"{side} moved: {record}"
+
+
+@contextlib.contextmanager
+def _threads(n):
+    old = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)
+
+
+@contextlib.contextmanager
+def _flush_denormal():
+    torch.set_flush_denormal(True)
+    try:
+        yield
+    finally:
+        torch.set_flush_denormal(False)
+
+
+@contextlib.contextmanager
+def _mkldnn_off():
+    old = torch.backends.mkldnn.enabled
+    torch.backends.mkldnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.mkldnn.enabled = old
+
+
+@contextlib.contextmanager
+def _default_dtype(dtype):
+    old = torch.get_default_dtype()
+    torch.set_default_dtype(dtype)
+    try:
+        yield
+    finally:
+        torch.set_default_dtype(old)
+
+
+@contextlib.contextmanager
+def _matmul_precision(p):
+    old = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision(p)
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(old)
+
+
+PROCESS_STATES = {
+    "threads1": lambda: _threads(1),
+    "threads3": lambda: _threads(3),
+    "flush_denormal": _flush_denormal,
+    "mkldnn_off": _mkldnn_off,
+    "default_float64": lambda: _default_dtype(torch.float64),
+    "matmul_medium": lambda: _matmul_precision("medium"),
+    "relu_reference": lambda: T.settings.override(relu_impl="reference"),
+    "acos_exact": lambda: T.settings.override(acos_impl="exact"),
+    "grad_safe": lambda: T.settings.override(grad_safe=True),
+    "moment_high": lambda: T.settings.override(moment_precision="high"),
+}
+
+
+@pytest.mark.parametrize("state", sorted(PROCESS_STATES))
+def test_reference_tile_ignores_process_state(state):
+    """The plain tile of test_reference_matches_jax_interpret[False] is the
+    same bits under each state an earlier test could leave in its xdist
+    worker: the suspects of that test's two intermittent failures."""
+    x, z, _ = _pair(False)
+    spec = tmk.match(small(T))
+
+    def tile():
+        return tmk.gram_tile_reference(spec, torch.from_numpy(x),
+                                       torch.from_numpy(z)).numpy()
+
+    want = tile()
+    with PROCESS_STATES[state]():
+        got = tile()
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("use_mask", [False, True])
