@@ -3,8 +3,12 @@
 A copy of ``cnn_gp_tpu/data/store_ts.py`` with ``tensorstore`` imported
 only when a store is opened (without it, opening raises ``ImportError``),
 and the same on-disk layout, so a store written by either package opens
-in the other.  Same interface as ``GramStore`` (``data/store.py``), but a
-Zarr store is a directory of independent chunk objects, so:
+in the other.  Unlike the JAX copy, ``.zattrs`` is written to a temporary
+file and renamed into place, so a worker that loses a creation race never
+reads it half written, and a loser that finds no attributes yet holds the
+array's chunk grid to its own (``tests/test_torch_store_race.py``).
+Same interface as ``GramStore`` (``data/store.py``), but a Zarr store is
+a directory of independent chunk objects, so:
 
 * concurrent writers on a shared filesystem or object store need no file
   locking (each tile touches only its own chunks), which replaces the
@@ -134,9 +138,18 @@ class TensorStoreGramStore:
             # race): NEVER overwrite its attrs — a batch-size mismatch
             # means the shared done bitmap is indexed in different units
             # and tile-level resume would silently corrupt.  Checked
-            # before the bitmap open so the clear error wins.
-            existing_bs = self.batch_size(name)
-            if existing_bs != batch_size:
+            # before the bitmap open so the clear error wins.  Without
+            # attrs (another tool's store, or a concurrent creator that
+            # has made the array and not yet written them) the chunk grid
+            # this call would create must be the array's.
+            attrs = self._read_attrs(name)
+            if "batch_size" in attrs:
+                existing_bs = int(attrs["batch_size"])
+                same = existing_bs == batch_size
+            else:
+                grid = tuple(arr.chunk_layout.read_chunk.shape)
+                existing_bs, same = grid[-1], grid == chunks
+            if not same:
                 raise ValueError(
                     f"{self.path}/{name} was created with batch_size="
                     f"{existing_bs}; resuming with batch_size={batch_size} "
@@ -166,11 +179,22 @@ class TensorStoreGramStore:
             self._attrs_kvstore(name).write(".zattrs",
                                             payload.encode()).result()
         else:
+            # written whole or not at all: a concurrent worker that lost
+            # the creation race reads them at once, and must never see a
+            # file opened but not yet written
             import os
-            os.makedirs(os.path.dirname(self._attrs_path(name)),
-                        exist_ok=True)
-            with open(self._attrs_path(name), "w") as f:
-                f.write(payload)
+            import tempfile
+            path = self._attrs_path(name)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path),
+                                       prefix=".zattrs.")
+            try:
+                with os.fdopen(fd, "w") as f:
+                    f.write(payload)
+                os.replace(tmp, path)
+            except BaseException:
+                os.unlink(tmp)
+                raise
         self._attrs_cache[name] = attrs
 
     def _read_attrs(self, name: str) -> dict:
@@ -187,7 +211,8 @@ class TensorStoreGramStore:
                 with open(self._attrs_path(name)) as f:
                     attrs = json.load(f)
         except OSError:
-            attrs = {}
+            # not cached: a concurrent creator writes them after the array
+            return {}
         self._attrs_cache[name] = attrs
         return attrs
 

@@ -19,6 +19,7 @@ more cards than the host has raises.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import datetime
 import multiprocessing
 import socket
@@ -71,10 +72,23 @@ def entry(device="cuda"):
                      0, 8)
 
 
-def _free_port() -> int:
+@contextlib.contextmanager
+def reserved_port():
+    """A free port on 127.0.0.1, held for a local world's rendezvous
+    until the ``with`` block ends.
+
+    The port is bound here with ``SO_REUSEADDR`` and never listened on.
+    While it is held, the kernel gives it to no other socket (a bind to
+    port 0 and an outgoing connection both skip it), and an explicit
+    bind without ``SO_REUSEADDR`` fails; rank 0's TCPStore, which binds
+    with ``SO_REUSEADDR``, can still listen on it.  A port that is only
+    probed and closed can be taken by another process in the seconds
+    before rank 0 binds it, and then a rank fails or joins the wrong
+    world."""
     with socket.socket() as s:
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+        yield s.getsockname()[1]
 
 
 def dryrun_multichip(n_devices: int, device="cuda") -> None:
@@ -90,7 +104,8 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
 
     When ``torch.distributed`` is initialised, this process runs it as its
     rank of the default group, whose size must be ``n_devices``.
-    Otherwise it spawns ``n_devices`` local ranks on a free localhost port:
+    Otherwise it spawns ``n_devices`` local ranks that meet on a
+    ``reserved_port``:
     NCCL, one card each, on CUDA; gloo when ``device="cpu"``.  A rank
     that fails makes the call raise."""
     if dist.is_available() and dist.is_initialized():
@@ -115,30 +130,31 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
 
 def spawn_ranks(size: int, target, *args, limit_s=None) -> None:
     """Run ``target(rank, size, port, *args)`` in ``size`` spawned
-    processes that share a free localhost ``port``; raise RuntimeError
+    processes that meet on ``127.0.0.1:port``, a ``reserved_port`` held
+    for the life of the world; raise RuntimeError
     when one of them fails, or when the world outlasts ``limit_s``
     seconds (None: no limit).  The first rank that fails ends the others
     at once: they would wait for it in a collective until its timeout."""
     ctx = multiprocessing.get_context("spawn")
-    port = _free_port()
-    procs = [ctx.Process(target=target, args=(r, size, port) + args)
-             for r in range(size)]
-    for p in procs:
-        p.start()
-    deadline = None if limit_s is None else time.monotonic() + limit_s
-    try:
-        while any(p.is_alive() for p in procs):
-            if any(p.exitcode not in (None, 0) for p in procs):
-                break
-            if deadline is not None and time.monotonic() > deadline:
-                break
-            time.sleep(0.05)
-    finally:
-        hung = sum(p.is_alive() for p in procs)
+    with reserved_port() as port:
+        procs = [ctx.Process(target=target, args=(r, size, port) + args)
+                 for r in range(size)]
         for p in procs:
-            if p.is_alive():
-                p.kill()
-            p.join()
+            p.start()
+        deadline = None if limit_s is None else time.monotonic() + limit_s
+        try:
+            while any(p.is_alive() for p in procs):
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    break
+                if deadline is not None and time.monotonic() > deadline:
+                    break
+                time.sleep(0.05)
+        finally:
+            hung = sum(p.is_alive() for p in procs)
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join()
     codes = [p.exitcode for p in procs]
     if codes != [0] * size:
         raise RuntimeError(f"{size} ranks: rank exit codes {codes}"

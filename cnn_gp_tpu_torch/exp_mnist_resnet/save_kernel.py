@@ -16,18 +16,24 @@ Multi-process: pass ``--coordinator_address=host:port`` with
 under torchrun) to join a ``torch.distributed`` group; ``worker_rank`` /
 ``n_workers`` then come from the group instead of the flags, and each
 process computes its contiguous span on ``cuda:{local rank}`` (no
-collective is involved).
+collective is involved).  The rendezvous waits at most RANK_TIMEOUT_S
+for every rank to arrive, as ``jax.distributed.initialize`` waits its
+``initialization_timeout``: a rank that never comes ends the others
+with an error.
 
 TF32 is turned off before any kernel runs (``settings.moment_precision``
 is "highest").  ``--device=cuda`` without CUDA raises.
 """
 
 import argparse
+import datetime
 
 from cnn_gp_tpu_torch import configs, settings
 from cnn_gp_tpu_torch.data import DatasetFromConfig, open_store
 from cnn_gp_tpu_torch.parallel import multihost, save_K
 from cnn_gp_tpu_torch.utils import resolve_device
+
+RANK_TIMEOUT_S = 300    # the rendezvous and any collective of the group
 
 
 def run(config, out_path: str, *, datasets_path: str, device,
@@ -90,9 +96,10 @@ def main(argv=None):
     device = resolve_device(a.device)
     n_workers, worker_rank = a.n_workers, a.worker_rank
     if a.coordinator_address:
-        device = multihost.initialize(a.coordinator_address,
-                                      a.num_processes, a.process_id,
-                                      device=a.device)
+        device = multihost.initialize(
+            a.coordinator_address, a.num_processes, a.process_id,
+            device=a.device,
+            timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
         worker_rank, n_workers = multihost.worker_identity()
         print(f"torch.distributed: worker {worker_rank}/{n_workers}",
               flush=True)

@@ -64,8 +64,8 @@ from . import cuda_lib
 __all__ = ["relu_transform", "relu_transform_reference", "relu_xy_reference",
            "relu_xy_vjp_reference", "relu_factors", "factor_table",
            "factor_table_entries", "factor_table_reference", "acos_f32",
-           "F32_TINY", "check_method", "METHODS", "build", "launches",
-           "vjp_launches", "copies"]
+           "F32_TINY", "check_method", "METHODS", "DEFAULT_METHOD", "build",
+           "launches", "vjp_launches", "copies"]
 
 launches = 0   # ReLU kernel launches
 vjp_launches = 0   # launches of the adjoint kernel
@@ -77,6 +77,7 @@ F32_TINY = float(np.finfo(np.float32).tiny)
 _HALF_PI = math.pi / 2.0
 # the JAX package's lowerings of the ReLU (settings.relu_method)
 METHODS = ("auto", "xla")
+DEFAULT_METHOD = "auto"   # settings.relu_method's default, as in JAX
 
 
 def check_method() -> None:

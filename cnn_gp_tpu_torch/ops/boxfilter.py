@@ -52,7 +52,7 @@ from . import arccos, cuda_lib
 __all__ = ["same_padding", "resolve_padding", "out_size", "box_filter_2d",
            "box_filter_2d_reference", "conv_maps", "conv_maps_reference",
            "box_filter_2d_vjp_reference",
-           "check_method", "METHODS", "build", "launches",
+           "check_method", "METHODS", "DEFAULT_METHOD", "build", "launches",
            "prologue_launches", "epilogue_launches", "vjp_launches",
            "copies"]
 
@@ -69,6 +69,7 @@ _partials_sizes = (None, {})   # (the library, its partials sizes by shape)
 
 # the JAX package's lowerings of the box filter (settings.conv_method)
 METHODS = ("shifts", "separable", "direct", "matmul")
+DEFAULT_METHOD = "separable"   # settings.conv_method's default, as in JAX
 # what a fused launch's prologue does to a map (csrc/boxfilter.cu)
 AS_IS, HALF, RELU = 0, 1, 2
 

@@ -8,4 +8,8 @@ from .device_large import (classify_device_large, make_scores_fn,
                            variances_from_factor)  # noqa: F401
 from .mesh import make_mesh, TILE_AXIS  # noqa: F401
 from .solve_dist import cg_solve_sharded  # noqa: F401
+from .chol_dist import (chol_solve_dist, chol_solve_ir32,
+                        chol_solve_dist_from_store,
+                        chol_solve_stream_from_store, cholesky_sharded,
+                        cholesky_solve_sharded)  # noqa: F401
 from .incremental import IncrementalGP  # noqa: F401

@@ -14,7 +14,7 @@ import numpy as np
 from ..utils import round_up_div
 
 __all__ = ["n_tiles", "tile_manifest", "worker_span", "worker_manifest",
-           "tile_offsets"]
+           "tile_offsets", "round_up_div"]
 
 
 def n_tiles(n1_batches: int, n2_batches: int, symmetric: bool) -> int:

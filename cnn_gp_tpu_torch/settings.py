@@ -13,14 +13,16 @@ import contextlib
 
 import torch
 
+from .ops import arccos as _arccos, boxfilter as _boxfilter
+
 # The port has one lowering each for the box filter and the ReLU, which
 # computes what each of the JAX package's does; these record them under
 # its names (its defaults) for snapshot(), and an unknown name raises
 # ValueError where JAX's would (ops/boxfilter.py::check_method: "shifts",
 # "separable", "direct", "matmul"; ops/arccos.py::check_method: "auto",
-# "xla").
-conv_method = "separable"
-relu_method = "auto"
+# "xla"), with their DEFAULT_METHOD as the default.
+conv_method = _boxfilter.DEFAULT_METHOD
+relu_method = _arccos.DEFAULT_METHOD
 # arccos implementation inside the ReLU transform: "poly" (Cephes-style
 # polynomial, the one the megakernel evaluates) | "exact" (torch.acos).
 acos_impl = "poly"

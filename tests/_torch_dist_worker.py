@@ -2,30 +2,82 @@
 
 ``run_world(size, job, out_dir)`` starts ``size`` spawned processes that
 join one gloo group through ``multihost.initialize``
-(``127.0.0.1:<free port>``, a 60 s timeout),
+(``127.0.0.1:<reserved port>``, a 60 s timeout),
 run ``job(mesh, out_dir)`` from this module on each rank and leave the
 group; each rank saves what it computed to ``out_dir/rank<r>.npz``.  A
 world that does not end within its limit is killed and fails its test.
 The children import the port only, never jax.
+
+``launch(procs, log_dir, env=...)`` runs command-line groups (a driver's
+ranks, each its own process given ``--coordinator_address``) and, when
+one fails, reports every process's group, rank, return code, time-out
+and the tail of its output.  Every rendezvous port of these tests is an
+``entry.reserved_port``, held by the test until its group has ended.
 """
 
 import contextlib
 import datetime
 import io
 import os
-import socket
+import subprocess
 import time
 
 import numpy as np
 
 TIMEOUT_S = 60      # init_process_group and every collective
 JOIN_S = 150        # the whole world
+TAIL_LINES = 60     # of each process's output in a failure report
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def launch(procs, log_dir, *, env, limit_s=JOIN_S):
+    """Run every ``(group, rank, argv)`` of ``procs`` at once from the
+    repo's root and wait for all of them, within ``limit_s`` seconds in
+    all; the first that fails ends the others.  Each writes its output
+    to its own file in ``log_dir`` (no pipe that could fill while the
+    test waits on another process).  Returns each one's output, in
+    order.  Raises AssertionError when any failed or outlasted the
+    limit, reporting every process: its group and rank, its return
+    code, whether it was killed (at the limit, or after another failed)
+    and the last TAIL_LINES lines of its output."""
+    runs, deadline = [], time.monotonic() + limit_s
+    try:
+        for group, rank, argv in procs:
+            path = os.path.join(log_dir, f"{group}.rank{rank}.log")
+            with open(path, "w") as out:
+                runs.append((group, rank, path, subprocess.Popen(
+                    argv, cwd=REPO, env=env, stdout=out,
+                    stderr=subprocess.STDOUT)))
+        while any(p.poll() is None for *_, p in runs):
+            if any(p.returncode not in (None, 0) for *_, p in runs):
+                break
+            if time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+    finally:
+        timed_out = time.monotonic() > deadline
+        killed = set()
+        for i, (*_, p) in enumerate(runs):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+                killed.add(i)
+    outs = []
+    for _, _, path, _ in runs:
+        with open(path) as f:
+            outs.append(f.read())
+    if killed or any(p.returncode != 0 for *_, p in runs):
+        report = []
+        for i, ((group, rank, _, p), out) in enumerate(zip(runs, outs)):
+            state = (f"return code {p.returncode}" if i not in killed else
+                     f"killed at the {limit_s} s limit" if timed_out else
+                     "killed after another process failed")
+            tail = "\n".join(out.splitlines()[-TAIL_LINES:])
+            report.append(f"--- group {group}, rank {rank}: {state}; the "
+                          f"last {TAIL_LINES} lines of its output:\n{tail}")
+        raise AssertionError(f"{len(runs)} processes, "
+                             f"{len(killed)} killed:\n" + "\n".join(report))
+    return outs
 
 
 def _child(rank, size, port, job_name, out_dir):
@@ -449,3 +501,37 @@ def failing_rank(rank, size, port):
     if rank == 1:
         raise RuntimeError("rank 1 fails")
     time.sleep(JOIN_S)
+
+
+def ping(mesh, out_dir):
+    """A world's least work: the sum of every rank's ``rank + 1`` over
+    the group, and this rank's identity."""
+    import torch
+    import torch.distributed as dist
+    t = torch.tensor([float(mesh.rank + 1)])
+    dist.all_reduce(t)
+    return {"sum": t.numpy(), "rank": np.array(mesh.rank),
+            "size": np.array(mesh.size)}
+
+
+# -- concurrent creators of one Zarr store (tests/test_torch_store_race.py)
+
+def race_creates(rank, root, n_stores, barrier, errors):
+    """Create save_kernel's three datasets in each of ``n_stores`` fresh
+    Zarr stores under ``root``, each one after ``barrier`` (the other
+    process does the same at the same moment, as two ranks do after
+    their rendezvous); put this rank's exception messages on
+    ``errors``."""
+    from cnn_gp_tpu_torch.data import TensorStoreGramStore
+    got = []
+    for k in range(n_stores):
+        barrier.wait()
+        try:
+            with TensorStoreGramStore(os.path.join(root, f"s{k}")) as s:
+                s.create("Kxx", 96, None, 32)
+                s.create("Kxvx", 32, 96, 32)
+                s.create("Kxtx", 32, 96, 32)
+        except Exception as err:   # noqa: BLE001  (reported by the test)
+            got.append(f"rank {rank}, store {k}: {type(err).__name__}: "
+                       f"{err}")
+    errors.put(got)

@@ -23,6 +23,7 @@ import torch.distributed as dist
 
 import cnn_gp_tpu as G
 import _torch_dist_worker as W
+from cnn_gp_tpu_torch.entry import reserved_port
 from cnn_gp_tpu import serving as jserving
 from cnn_gp_tpu.data import GramStore as JStore
 from cnn_gp_tpu.data import synthetic_arrays
@@ -192,12 +193,13 @@ def ref(tmp_path_factory, one_torch_thread):
 
 
 def _one_rank_gloo():
-    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(W.free_port()),
-           "RANK": "0", "WORLD_SIZE": "1"}
-    with mock.patch.dict(os.environ, env):
-        multihost.initialize(
-            "env", device="cpu",
-            timeout=datetime.timedelta(seconds=W.TIMEOUT_S))
+    with reserved_port() as port:
+        env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+               "RANK": "0", "WORLD_SIZE": "1"}
+        with mock.patch.dict(os.environ, env):
+            multihost.initialize(
+                "env", device="cpu",
+                timeout=datetime.timedelta(seconds=W.TIMEOUT_S))
 
 
 @pytest.fixture(scope="module", params=WORLDS, ids=str)

@@ -219,7 +219,7 @@ def test_dryrun_matches_jax(dryruns, key, bound, how):
 
 
 def test_dryrun_spawns_its_ranks(capfd):
-    """With no group, ``dryrun_multichip`` spawns its ranks on a free
+    """With no group, ``dryrun_multichip`` spawns its ranks on a reserved
     localhost port and returns None; its one rank prints the line."""
     assert E.dryrun_multichip(1, device="cpu") is None
     nums = _summary(capfd.readouterr().out)

@@ -17,7 +17,7 @@ import cnn_gp_tpu_torch as T
 from cnn_gp_tpu import settings as jsettings
 from cnn_gp_tpu.data import synthetic_arrays
 from cnn_gp_tpu.ops import solve as jsolve
-from cnn_gp_tpu_torch import fit as tfit
+from cnn_gp_tpu_torch import fit_lib as tfit
 from cnn_gp_tpu_torch import settings
 from cnn_gp_tpu_torch.convert import from_jax_model, leaf_items
 from cnn_gp_tpu_torch.data import digits, hard_mnist

@@ -12,7 +12,7 @@ import torch
 
 from cnn_gp_tpu.data import synthetic_arrays
 from cnn_gp_tpu.ops import solve as jsolve
-from cnn_gp_tpu_torch import fit as tfit
+from cnn_gp_tpu_torch import fit_lib as tfit
 from cnn_gp_tpu_torch.convert import from_jax_model
 from scripts.fit_hyperparams import draw_gp_targets
 from scripts.fit_hyperparams import make_model as jax_conv_model

@@ -4,7 +4,7 @@ function: ``device_large_scale`` (classify, then serve its posterior),
 ``fit_paper_scale --grad=probed`` and ``incremental_bench``.
 
 Each runs at toy size as two processes of one gloo group
-(``--device=cpu --coordinator_address=localhost:<port> --num_processes=2
+(``--device=cpu --coordinator_address=127.0.0.1:<port> --num_processes=2
 --process_id=i``), which row-shards its factors (``ShardedFactor``), and
 in this process on one device (``CardFactor``).  ``tests/_torch_group_
 driver.py`` records what each library call returned on both sides: both
@@ -16,7 +16,6 @@ line or summary and writes files; ``fit_paper_scale --grad=exact``
 refuses a group before any work."""
 
 import os
-import subprocess
 import sys
 
 import numpy as np
@@ -24,6 +23,7 @@ import pytest
 import torch
 
 import _torch_dist_worker as W
+from cnn_gp_tpu_torch.entry import reserved_port
 import _torch_group_driver as D
 from cnn_gp_tpu_torch.fit import MESH_NEEDS_PROBED
 from cnn_gp_tpu_torch.scripts import (device_large_scale, fit_deploy_large,
@@ -67,26 +67,14 @@ def one_torch_thread():
 def _group(module, args, tmp_path):
     """Run ``module`` as the two ranks of one gloo group under the
     recording helper; return each rank's records and output."""
-    port = W.free_port()
     env = dict(os.environ, OMP_NUM_THREADS="1")
     paths = [str(tmp_path / f"rank{r}.npz") for r in range(2)]
-    procs = [subprocess.Popen(
-        [sys.executable, HELPER, paths[r], module] + args + [
-            "--device=cpu", f"--coordinator_address=localhost:{port}",
-            "--num_processes=2", f"--process_id={r}"],
-        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for r in range(2)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=W.JOIN_S)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for p, out in zip(procs, outs):
-        assert p.returncode == 0, out[-3000:]
+    with reserved_port() as port:
+        outs = W.launch([("group", r, [
+            sys.executable, HELPER, paths[r], module] + args + [
+                "--device=cpu", f"--coordinator_address=127.0.0.1:{port}",
+                "--num_processes=2", f"--process_id={r}"])
+            for r in range(2)], str(tmp_path), env=env)
     records = []
     for path in paths:
         with np.load(path) as f:

@@ -42,7 +42,7 @@ from cnn_gp_tpu import settings as jsettings
 from cnn_gp_tpu.kernels import apply_kernel as japply
 from cnn_gp_tpu.ops import arccos as jarc
 from cnn_gp_tpu.ops import boxfilter as jbox
-from cnn_gp_tpu_torch import fit as tfit
+from cnn_gp_tpu_torch import fit_lib as tfit
 from cnn_gp_tpu_torch.convert import from_jax_model
 from cnn_gp_tpu_torch.ops import arccos as tarc
 from cnn_gp_tpu_torch.ops import boxfilter as tbox

@@ -15,7 +15,7 @@ from cnn_gp_tpu.data import synthetic_arrays
 from cnn_gp_tpu.ops import solve as jsolve
 from cnn_gp_tpu.parallel import gram_in_memory as jgram
 from cnn_gp_tpu.parallel import scheduler as jscheduler
-from cnn_gp_tpu_torch import fit as tfit
+from cnn_gp_tpu_torch import fit_lib as tfit
 from cnn_gp_tpu_torch.convert import from_jax_model
 from cnn_gp_tpu_torch.ops import solve
 from cnn_gp_tpu_torch.parallel import scheduler

@@ -18,6 +18,7 @@ import torch.distributed as dist
 
 import cnn_gp_tpu as G
 import _torch_dist_worker as W
+from cnn_gp_tpu_torch.entry import reserved_port
 from cnn_gp_tpu.ops import solve as jsolve
 from cnn_gp_tpu.parallel import cg_solve_sharded as jcg
 from cnn_gp_tpu.parallel import compute_gram_sharded as jgram_sharded
@@ -42,12 +43,13 @@ def one_torch_thread():
 
 def _one_rank_gloo():
     """A one-rank gloo group, joined as torchrun's ranks join theirs."""
-    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(W.free_port()),
-           "RANK": "0", "WORLD_SIZE": "1"}
-    with mock.patch.dict(os.environ, env):
-        dev = multihost.initialize(
-            "env", device="cpu",
-            timeout=datetime.timedelta(seconds=W.TIMEOUT_S))
+    with reserved_port() as port:
+        env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+               "RANK": "0", "WORLD_SIZE": "1"}
+        with mock.patch.dict(os.environ, env):
+            dev = multihost.initialize(
+                "env", device="cpu",
+                timeout=datetime.timedelta(seconds=W.TIMEOUT_S))
     assert dev == CPU and dist.get_backend() == "gloo"
 
 

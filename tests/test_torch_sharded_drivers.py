@@ -1,6 +1,6 @@
 """The drivers on a rank group: ``classify_gp --solver=chol_dist``,
 ``classify_e2e --large`` and ``serve_gp --variances`` each run as two
-processes of one gloo group (``--coordinator_address=localhost:<port>
+processes of one gloo group (``--coordinator_address=127.0.0.1:<port>
 --num_processes=2 --process_id=i --device=cpu``) on the synthetic config
 with its ranges cut to 96 / 32 / 32 (``tests/_torch_cut_config.py``),
 which row-shards their factor (``ShardedFactor``).  Both ranks must print
@@ -10,7 +10,6 @@ predictive std within the float32 factor's rounding."""
 
 import os
 import re
-import subprocess
 import sys
 
 import numpy as np
@@ -18,6 +17,7 @@ import pytest
 import torch
 
 import _torch_dist_worker as W
+from cnn_gp_tpu_torch.entry import reserved_port
 from cnn_gp_tpu_torch import configs
 from cnn_gp_tpu_torch.exp_mnist_resnet import (classify_e2e, classify_gp,
                                                save_kernel, serve_gp)
@@ -42,31 +42,19 @@ def cut_synthetic(monkeypatch):
     torch.set_num_threads(n)
 
 
-def _group(module, args):
+def _group(module, args, log_dir):
     """Run ``module`` as the two processes of one gloo group; return each
     rank's output."""
-    port = W.free_port()
     env = dict(os.environ, CUT_CONFIG="synthetic",
                CUT_RANGES=",".join(map(str, RANGES)), OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.join(REPO, "tests", "_torch_cut_config.py"),
-         "-m", module] + args + [
-            "--device=cpu", f"--coordinator_address=localhost:{port}",
-            "--num_processes=2", f"--process_id={rank}"],
-        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for rank in range(2)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=W.JOIN_S)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for p, out in zip(procs, outs):
-        assert p.returncode == 0, out[-3000:]
-    return outs
+    with reserved_port() as port:
+        return W.launch([("group", rank, [
+            sys.executable, os.path.join(REPO, "tests",
+                                         "_torch_cut_config.py"),
+            "-m", module] + args + [
+                "--device=cpu", f"--coordinator_address=127.0.0.1:{port}",
+                "--num_processes=2", f"--process_id={rank}"])
+            for rank in range(2)], str(log_dir), env=env)
 
 
 def _numbers(out, pattern):
@@ -101,7 +89,8 @@ def test_classify_gp_chol_dist_on_two_ranks(cut_synthetic, tmp_path, capsys):
     capsys.readouterr()
     classify_gp.main(args + ["--device=cpu"])
     want = capsys.readouterr().out
-    outs = _group("cnn_gp_tpu_torch.exp_mnist_resnet.classify_gp", args)
+    outs = _group("cnn_gp_tpu_torch.exp_mnist_resnet.classify_gp", args,
+                  tmp_path)
     _same_report(outs, want)
 
 
@@ -118,7 +107,7 @@ def test_classify_e2e_large_then_serve_on_two_ranks(tmp_path, capsys):
     classify_e2e.main(args + ["--device=cpu"])
     want = capsys.readouterr().out
     outs = _group("cnn_gp_tpu_torch.exp_mnist_resnet.classify_e2e",
-                  args + [f"--save_posterior={post}"])
+                  args + [f"--save_posterior={post}"], tmp_path)
     _same_report(outs, want)
     assert os.path.exists(post)
 
@@ -129,7 +118,7 @@ def test_classify_e2e_large_then_serve_on_two_ranks(tmp_path, capsys):
     cache = str(tmp_path / "fc")
     for _ in range(2):
         outs = _group("cnn_gp_tpu_torch.exp_mnist_resnet.serve_gp",
-                      args + [f"--factor_cache={cache}"])
+                      args + [f"--factor_cache={cache}"], tmp_path)
         _same_report(outs, want)
     with open(os.path.join(cache, "meta.json")) as fh:
         assert '"n_devices": 2' in fh.read()
