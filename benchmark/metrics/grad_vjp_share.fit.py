@@ -1,0 +1,20 @@
+"""grad_vjp_share.fit: the share of the traced fit call's steps that the
+host spent in the exact path's VJP sweep (its launches and autograd,
+ending in the gradients' copy to the host), in percent: the program's
+``fit.grad_vjp`` spans over its ``fit.step`` spans
+(``cnn_gp_tpu_torch.utils.timing``, on the host clock), which record
+while the traced call runs under the profiler.  None without a trace, or
+where the program records no ``fit.step`` span."""
+
+
+def read(ctx):
+    if ctx["kind"] != "fit" or not ctx["traced"]:
+        return None
+    from cnn_gp_tpu_torch.utils import timing
+    found = timing.spans() if hasattr(timing, "spans") else []
+
+    def total(name):
+        return sum(s.end_ns - s.start_ns for s in found if s.name == name)
+
+    step = total("fit.step")
+    return 100.0 * total("fit.grad_vjp") / step if step else None

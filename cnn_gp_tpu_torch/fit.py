@@ -42,8 +42,8 @@ here is compiled, so JAX's fixed-size tile chunks (``_weighted_chunks``,
 
 from __future__ import annotations
 
+import contextlib
 import copy
-import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -57,6 +57,7 @@ from .parallel.chol_dist import _factor_for, _mesh_device
 from .parallel.device_large import _assemble_scaled, _matvec_scan
 from .parallel.mesh import agree, broadcast_array, is_root
 from .parallel.gram import _on_device, compute_gram_diag, gram_in_memory
+from .utils import timing
 
 __all__ = ["neg_marginal_log_likelihood", "fit",
            "nmll_value_and_grad_tiled", "fit_large", "ProbedNMLL",
@@ -213,18 +214,16 @@ def _tile_vjp_sweep(model, x_all: torch.Tensor, tiles, cotangent,
     return {k: a.cpu().numpy() for (k, _), a in zip(items, acc)}
 
 
-def _ticker(device, phases: dict):
-    """``tick(name)`` records the wall seconds since the previous tick
-    (after a sync on the card) under ``name``."""
-    t = [time.perf_counter()]
+# the exact step's phases and the parts of its host float64 phase
+_EXACT_PHASES = ("gram", "host_f64", "grad_vjp", "host_f64.copy",
+                 "host_f64.cho_factor", "host_f64.cho_solve",
+                 "host_f64.dpotri", "host_f64.cotangent")
 
-    def tick(name):
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        now = time.perf_counter()
-        phases[name] = round(now - t[0], 3)
-        t[0] = now
-    return tick
+
+def _phases(found, *names: str) -> Dict[str, float]:
+    """The seconds of the ``fit.<name>`` spans in ``found``, by name."""
+    t = timing.seconds(found, *(f"fit.{n}" for n in names))
+    return {n: round(t[f"fit.{n}"], 3) for n in names}
 
 
 def nmll_value_and_grad_tiled(model, x, y, jitter: float = 1e-6,
@@ -240,48 +239,65 @@ def nmll_value_and_grad_tiled(model, x, y, jitter: float = 1e-6,
     ``dL/dK = 0.5 (C K^-1 - A A^T)`` (A the [N, C] solve), contracted with
     tile VJPs over the upper tile triangle, weighted 1 on the diagonal
     and 2 above it (K and dL/dK are both symmetric).  Returns ``(loss,
-    grads)``: a float64 value and float32-accumulated gradients.  A dict
-    passed as ``phases`` receives the wall seconds of the Gram sweep, the
-    host float64 algebra and the VJP sweep."""
+    grads)``: a float64 value and float32-accumulated gradients.
+
+    Spans: ``fit.gram`` (the tile sweep, ending in the Gram's copy to the
+    host), ``fit.host_f64`` (its children ``fit.host_f64.copy`` (the
+    float64 copy and jitter), ``.cho_factor``, ``.cho_solve``, ``.dpotri``
+    (with the symmetrisation) and ``.cotangent`` (built and uploaded)) and
+    ``fit.grad_vjp`` (the VJP sweep, ending in the gradients' copy to the
+    host).  A dict passed as ``phases`` receives those three spans'
+    seconds as ``gram``, ``host_f64`` and ``grad_vjp``."""
     import scipy.linalg
 
     device = torch.device(device)
     settings.check_precision_on(device)
-    tick = _ticker(device, {} if phases is None else phases)
-    x_all = _on_device(x, device)
-    y64 = np.asarray(y, np.float64)
-    n, c = len(x_all), y64.shape[1]
-    b = min(batch_size, n)
+    with (timing.recording() if phases is not None
+          else contextlib.nullcontext()) as found:
+        x_all = _on_device(x, device)
+        y64 = np.asarray(y, np.float64)
+        n, c = len(x_all), y64.shape[1]
+        b = min(batch_size, n)
 
-    # 1) K by the tile sweeps (the megakernel for matched models); a host
-    # float64 copy, O(N^2): the ceiling of this path
-    k = np.asarray(gram_in_memory(model, x_all, device=device, batch_size=b,
-                                  progress=False), np.float64)
-    tick("gram")
-    s = float(np.mean(np.diagonal(k)))
-    k.flat[:: n + 1] += s * jitter
+        # 1) K by the tile sweeps (the megakernel for matched models)
+        with timing.span("fit.gram"):
+            k = gram_in_memory(model, x_all, device=device, batch_size=b,
+                               progress=False)
 
-    # 2) value and dL/dK in float64 from one Cholesky
-    cho = scipy.linalg.cho_factor(k, lower=True)
-    alpha = scipy.linalg.cho_solve(cho, y64)
-    loss = (0.5 * float(np.sum(y64 * alpha))
-            + c * float(np.sum(np.log(np.diagonal(cho[0])))))
-    kinv, info = scipy.linalg.lapack.dpotri(cho[0], lower=True)
-    if info != 0:
-        raise np.linalg.LinAlgError(f"dpotri failed: info={info}")
-    kinv = np.tril(kinv) + np.tril(kinv, -1).T
-    gbar = torch.as_tensor((0.5 * (c * kinv - alpha @ alpha.T)).astype(
-        np.float32), device=device)
-    del k, kinv
-    tick("host_f64")
+        # 2) value and dL/dK in float64 from one Cholesky; the host float64
+        # copy, O(N^2), is the ceiling of this path
+        with timing.span("fit.host_f64"):
+            with timing.span("fit.host_f64.copy"):
+                k = np.asarray(k, np.float64)
+                s = float(np.mean(np.diagonal(k)))
+                k.flat[:: n + 1] += s * jitter
+            with timing.span("fit.host_f64.cho_factor"):
+                cho = scipy.linalg.cho_factor(k, lower=True)
+            with timing.span("fit.host_f64.cho_solve"):
+                alpha = scipy.linalg.cho_solve(cho, y64)
+                loss = (0.5 * float(np.sum(y64 * alpha))
+                        + c * float(np.sum(np.log(np.diagonal(cho[0])))))
+            with timing.span("fit.host_f64.dpotri"):
+                kinv, info = scipy.linalg.lapack.dpotri(cho[0], lower=True)
+                if info != 0:
+                    raise np.linalg.LinAlgError(
+                        f"dpotri failed: info={info}")
+                kinv = np.tril(kinv) + np.tril(kinv, -1).T
+            with timing.span("fit.host_f64.cotangent"):
+                gbar = torch.as_tensor(
+                    (0.5 * (c * kinv - alpha @ alpha.T)).astype(np.float32),
+                    device=device)
+            del k, kinv
 
-    # 3) the gradient: tile VJPs against gbar over the upper triangle
-    tiles = [(i0, j0, 1.0 if i0 == j0 else 2.0)
-             for i0, j0 in scheduler.tile_offsets(n, n, b, True)]
-    grads = _tile_vjp_sweep(
-        model, x_all, tiles,
-        lambda i0, j0, bi, bj: gbar[i0:i0 + bi, j0:j0 + bj], b)
-    tick("grad_vjp")
+        # 3) the gradient: tile VJPs against gbar over the upper triangle
+        with timing.span("fit.grad_vjp"):
+            tiles = [(i0, j0, 1.0 if i0 == j0 else 2.0)
+                     for i0, j0 in scheduler.tile_offsets(n, n, b, True)]
+            grads = _tile_vjp_sweep(
+                model, x_all, tiles,
+                lambda i0, j0, bi, bj: gbar[i0:i0 + bi, j0:j0 + bj], b)
+    if phases is not None:
+        phases.update(_phases(found, "gram", "host_f64", "grad_vjp"))
     return loss, grads
 
 
@@ -333,7 +349,7 @@ class ProbedNMLL:
         # the measured floor of the refinement residual, as in
         # classify_device_large
         self.tol = 3.0 * np.sqrt(n) * float(np.finfo(np.float32).eps)
-        # wall seconds per phase of the last value_and_grad call
+        # host seconds per phase of the last value_and_grad call
         self.last_phases = {}
 
     def _tiles(self, u, z, alpha, cp: float, seed: int):
@@ -370,93 +386,103 @@ class ProbedNMLL:
                        ) -> Tuple[float, Grads]:
         """One step's ``(loss, grads)``.  ``_probe_matrix`` [n, P] replaces
         the Rademacher draw (``sqrt(n) * I`` makes the estimator exact, the
-        tests' check against the tiled path)."""
+        tests' check against the tiled path).  Spans ``fit.diag``,
+        ``fit.assemble``, ``fit.factor``, ``fit.solve`` and
+        ``fit.grad_vjp``, whose seconds ``last_phases`` holds by name: the
+        host's time in each (nothing synchronizes the card, so a phase's
+        card work may finish in a later one)."""
+        with timing.recording() as found:
+            loss, grads = self._value_and_grad(model, seed, _probe_matrix)
+        self.last_phases = _phases(found, "diag", "assemble", "factor",
+                                   "solve", "grad_vjp")
+        return loss, grads
+
+    def _value_and_grad(self, model, seed, _probe_matrix):
         n, b, dev = self.n, self.b, self.device
-        self.last_phases = {}
-        tick = _ticker(dev, self.last_phases)
         with torch.no_grad():
             # 1) diagonal -> jitter scale and Jacobi equilibration
-            diag = compute_gram_diag(model, self.x_all, device=dev,
-                                     batch_size=b, progress=False
-                                     ).astype(np.float64)
-            jitter_raw = self.jitter * float(np.mean(diag))
-            s64 = 1.0 / np.sqrt(diag + jitter_raw)
-            s_dev = torch.as_tensor(s64.astype(np.float32), device=dev)
-            tick("diag")
+            with timing.span("fit.diag"):
+                diag = compute_gram_diag(model, self.x_all, device=dev,
+                                         batch_size=b, progress=False
+                                         ).astype(np.float64)
+                jitter_raw = self.jitter * float(np.mean(diag))
+                s64 = 1.0 / np.sqrt(diag + jitter_raw)
+                s_dev = torch.as_tensor(s64.astype(np.float32), device=dev)
 
             # 2) the scaled Gram straight into the factor buffer; the
             # previous step's factor goes first (two N_pad^2 buffers would
             # be resident otherwise)
-            self.factor.release()
-            k = _assemble_scaled(model, self.x_all, s_dev, b, n,
-                                 self.factor.n_pad, self.mesh)
-            tick("assemble")
-            self.factor._factorize_dev(k)
-            del k
-            tick("factor")
+            with timing.span("fit.assemble"):
+                self.factor.release()
+                k = _assemble_scaled(model, self.x_all, s_dev, b, n,
+                                     self.factor.n_pad, self.mesh)
+            with timing.span("fit.factor"):
+                self.factor._factorize_dev(k)
+                del k
 
             # 3) targets and probes through one batched solve, refined by
             # tile-regeneration matvec sweeps
-            c_cls = self.y64.shape[1]
-            if _probe_matrix is not None:
-                z = np.asarray(_probe_matrix, np.float64)
-            else:
-                rng = np.random.default_rng(seed)
-                z = rng.integers(0, 2, size=(n, self.probes)) * 2.0 - 1.0
-            p = z.shape[1]
-            rs = s64[:, None] * np.concatenate([self.y64, z], axis=1)
-            rnorm = np.linalg.norm(rs, axis=0)
-            rnorm[rnorm == 0] = 1.0
-            a_s = self.factor.solve(rs.astype(np.float32)).astype(np.float64)
-            root = is_root(self.mesh)
-            for _ in range(self.refine_iters):
-                r = None
-                if root:
-                    a_dev = torch.as_tensor(a_s.astype(np.float32),
-                                            device=dev)
-                    r = rs - _matvec_scan(model, self.x_all, s_dev, a_dev,
-                                          b, n).cpu().numpy().astype(
-                                              np.float64)
-                if self.mesh is not None:     # rank 0's residual stops
-                    r = broadcast_array(r, self.mesh)   # every rank
-                if float(np.max(np.linalg.norm(r, axis=0) / rnorm)) \
-                        <= self.tol:
-                    break
-                a_s = a_s + self.factor.solve(r.astype(np.float32)).astype(
+            with timing.span("fit.solve"):
+                c_cls = self.y64.shape[1]
+                if _probe_matrix is not None:
+                    z = np.asarray(_probe_matrix, np.float64)
+                else:
+                    rng = np.random.default_rng(seed)
+                    z = rng.integers(0, 2, size=(n, self.probes)) * 2.0 - 1.0
+                p = z.shape[1]
+                rs = s64[:, None] * np.concatenate([self.y64, z], axis=1)
+                rnorm = np.linalg.norm(rs, axis=0)
+                rnorm[rnorm == 0] = 1.0
+                a_s = self.factor.solve(rs.astype(np.float32)).astype(
                     np.float64)
-            tick("solve")
-            a_raw = s64[:, None] * a_s                  # K'^-1 [y | z]
-            alpha, u = a_raw[:, :c_cls], a_raw[:, c_cls:]
+                root = is_root(self.mesh)
+                for _ in range(self.refine_iters):
+                    r = None
+                    if root:
+                        a_dev = torch.as_tensor(a_s.astype(np.float32),
+                                                device=dev)
+                        r = rs - _matvec_scan(model, self.x_all, s_dev,
+                                              a_dev, b, n).cpu().numpy(
+                                                  ).astype(np.float64)
+                    if self.mesh is not None:     # rank 0's residual stops
+                        r = broadcast_array(r, self.mesh)   # every rank
+                    if float(np.max(np.linalg.norm(r, axis=0) / rnorm)) \
+                            <= self.tol:
+                        break
+                    a_s = a_s + self.factor.solve(
+                        r.astype(np.float32)).astype(np.float64)
+                a_raw = s64[:, None] * a_s                  # K'^-1 [y | z]
+                alpha, u = a_raw[:, :c_cls], a_raw[:, c_cls:]
 
-            # 4) value: quadratic form + the factor's log-determinant
-            loss = (0.5 * float(np.sum(self.y64 * alpha))
-                    + c_cls * (self.factor.log_diag_sum()
-                               - float(np.sum(np.log(s64)))))
+                # 4) value: quadratic form + the factor's log-determinant
+                loss = (0.5 * float(np.sum(self.y64 * alpha))
+                        + c_cls * (self.factor.log_diag_sum()
+                                   - float(np.sum(np.log(s64)))))
 
         # 5) gradient: rank-structured cotangents built per tile on the
         # device, 0.5 (cp (U_i Z_j^T + Z_i U_j^T) - A_i A_j^T)
-        cp = c_cls / (2.0 * p)
-        u_dev, z_dev, a_dev = (torch.as_tensor(m.astype(np.float32),
-                                               device=dev)
-                               for m in (u, z, alpha))
+        with timing.span("fit.grad_vjp"):
+            cp = c_cls / (2.0 * p)
+            u_dev, z_dev, a_dev = (torch.as_tensor(m.astype(np.float32),
+                                                   device=dev)
+                                   for m in (u, z, alpha))
 
-        def cotangent(i0, j0, bi, bj):
-            ui, uj = u_dev[i0:i0 + bi], u_dev[j0:j0 + bj]
-            zi, zj = z_dev[i0:i0 + bi], z_dev[j0:j0 + bj]
-            ai, aj = a_dev[i0:i0 + bi], a_dev[j0:j0 + bj]
-            return 0.5 * (cp * (ui @ zj.T + zi @ uj.T) - ai @ aj.T)
+            def cotangent(i0, j0, bi, bj):
+                ui, uj = u_dev[i0:i0 + bi], u_dev[j0:j0 + bj]
+                zi, zj = z_dev[i0:i0 + bi], z_dev[j0:j0 + bj]
+                ai, aj = a_dev[i0:i0 + bi], a_dev[j0:j0 + bj]
+                return 0.5 * (cp * (ui @ zj.T + zi @ uj.T) - ai @ aj.T)
 
-        offs, ws = self._tiles(u, z, alpha, cp, seed)
-        grads = _tile_vjp_sweep(model, self.x_all,
-                                [(i0, j0, w) for (i0, j0), w in zip(offs, ws)],
-                                cotangent, b)
-        if self.mesh is not None:
-            # rank 0's step on every rank: the fit_large guard and the
-            # iterates then agree bit for bit
-            loss = agree(loss if root else None, self.mesh)
-            grads = {k: broadcast_array(v, self.mesh)
-                     for k, v in grads.items()}
-        tick("grad_vjp")
+            offs, ws = self._tiles(u, z, alpha, cp, seed)
+            grads = _tile_vjp_sweep(
+                model, self.x_all,
+                [(i0, j0, w) for (i0, j0), w in zip(offs, ws)], cotangent, b)
+            if self.mesh is not None:
+                # rank 0's step on every rank: the fit_large guard and the
+                # iterates then agree bit for bit
+                loss = agree(loss if root else None, self.mesh)
+                grads = {k: broadcast_array(v, self.mesh)
+                         for k, v in grads.items()}
         return loss, grads
 
 
@@ -484,7 +510,12 @@ def fit_large(model, x, y, steps: int = 30,
     the learning rate is multiplied by ``backtrack_factor`` (floored at
     ``min_learning_rate``).  ``learning_rate=None`` is 0.1 for exact and
     0.05 for probed gradients.  ``verbose`` prints one line per step with
-    its wall seconds and phases.  ``mesh`` (probed gradients only)
+    its seconds and its phases' (the step's spans: ``fit.step``, attrs
+    ``step`` and ``accepted``, over the exact path's ``fit.gram``,
+    ``fit.host_f64`` with its five children and ``fit.grad_vjp``, or the
+    probed path's five phases of :meth:`ProbedNMLL.value_and_grad`, which
+    are host time); spans record only then or under a profiler.  ``mesh``
+    (probed gradients only)
     row-shards :class:`ProbedNMLL`'s factor over a rank group; every rank
     then takes the same steps."""
     if grad not in ("exact", "probed"):
@@ -512,38 +543,44 @@ def fit_large(model, x, y, steps: int = 30,
     losses = []
     best_raw, best_loss = [r.detach().clone() for r in raw], np.inf
     for it in range(steps):
-        t0 = time.perf_counter()
-        _set_primal(items, raw)
-        if plan is not None:
-            loss, g = plan.value_and_grad(fitted, seed=seed + it)
-            phases = plan.last_phases
-        else:
-            phases = {}
-            loss, g = nmll_value_and_grad_tiled(
-                fitted, x, y, jitter=jitter, batch_size=batch_size,
-                device=device, phases=phases)
-        losses.append(float(loss))
-        if loss < best_loss:
-            best_raw = [r.detach().clone() for r in raw]
-            best_loss = loss
-        if backtrack and (not np.isfinite(loss)
-                          or loss > best_loss + backtrack_tol * abs(best_loss)):
-            # drop this iterate and its gradient; restart from the best
-            # one at a smaller step
-            lr = max(lr * backtrack_factor, min_learning_rate)
-            with torch.no_grad():
-                for r, br in zip(raw, best_raw):
-                    r.copy_(br)
-            opt = _adam(raw, lr)
-            if verbose:
-                print(f"[fit_large] step {it}: nmll {loss:.4f} REJECTED "
-                      f"(best {best_loss:.4f}); lr -> {lr:.4g}", flush=True)
+        with (timing.recording() if verbose else contextlib.nullcontext()
+              ) as found, timing.span("fit.step", step=it) as step:
+            _set_primal(items, raw)
+            if plan is not None:
+                loss, g = plan.value_and_grad(fitted, seed=seed + it)
+            else:
+                loss, g = nmll_value_and_grad_tiled(
+                    fitted, x, y, jitter=jitter, batch_size=batch_size,
+                    device=device)
+            losses.append(float(loss))
+            if loss < best_loss:
+                best_raw = [r.detach().clone() for r in raw]
+                best_loss = loss
+            accepted = not (backtrack and (
+                not np.isfinite(loss)
+                or loss > best_loss + backtrack_tol * abs(best_loss)))
+            step.set(accepted=accepted)
+            if accepted:
+                _set_raw_grads(items, raw, g)
+                opt.step()
+            else:
+                # drop this iterate and its gradient; restart from the
+                # best one at a smaller step
+                lr = max(lr * backtrack_factor, min_learning_rate)
+                with torch.no_grad():
+                    for r, br in zip(raw, best_raw):
+                        r.copy_(br)
+                opt = _adam(raw, lr)
+        if not verbose:
             continue
-        _set_raw_grads(items, raw, g)
-        opt.step()
-        if verbose:
-            print(f"[fit_large] step {it}: nmll {loss:.4f} lr {lr:.4g} "
-                  f"({time.perf_counter() - t0:.3f}s)  {phases}", flush=True)
+        if not accepted:
+            print(f"[fit_large] step {it}: nmll {loss:.4f} REJECTED "
+                  f"(best {best_loss:.4f}); lr -> {lr:.4g}", flush=True)
+            continue
+        names = (_EXACT_PHASES if plan is None
+                 else ("diag", "assemble", "factor", "solve", "grad_vjp"))
+        print(f"[fit_large] step {it}: nmll {loss:.4f} lr {lr:.4g} "
+              f"({step.seconds:.3f}s)  {_phases(found, *names)}", flush=True)
     with torch.no_grad():
         for r, br in zip(raw, best_raw):
             r.copy_(br)

@@ -23,9 +23,11 @@ import torch
 
 from .. import settings
 from ..ops import megakernel, solve
+from ..utils import timing
 from . import scheduler
 from .chol_dist import CardFactor
-from .gram import _on_device, _tile_body, compute_gram_diag, set_maps
+from .gram import (_on_device, _tile_body, call_span, compute_gram_diag,
+                   set_maps)
 
 __all__ = ["gram_device", "classify_device"]
 
@@ -43,22 +45,26 @@ def gram_device(model, X, Z=None, *, batch_size: int = 128,
     device = torch.device(device)
     settings.check_precision_on(device)
     symmetric = Z is None
-    x_all = _on_device(X, device)
-    z_all = x_all if symmetric else _on_device(Z, device)
-    n1, n2 = len(x_all), len(z_all)
+    n1, n2 = len(X), len(X if symmetric else Z)
     b = batch_size
-    spec = megakernel.match(model)
-    maps = set_maps(spec, x_all, z_all)
-    k = torch.empty((n1, n2), dtype=torch.float32, device=device)
-    for i0, j0 in scheduler.tile_offsets(n1, n2, b, symmetric):
-        blk = _tile_body(model, spec, x_all, z_all, i0, j0, b, symmetric,
-                         maps)
-        bi, bj = blk.shape
-        if symmetric and i0 == j0:
-            blk = torch.triu(blk) + torch.triu(blk, 1).T
-        k[i0:i0 + bi, j0:j0 + bj] = blk
-        if symmetric and i0 != j0:
-            k[j0:j0 + bj, i0:i0 + bi] = blk.T
+    offsets = list(scheduler.tile_offsets(n1, n2, b, symmetric))
+    with call_span("gram_device", n1, n2, b) as call:
+        call.set(tiles=len(offsets))
+        x_all = _on_device(X, device)
+        z_all = x_all if symmetric else _on_device(Z, device)
+        spec = megakernel.match(model)
+        maps = set_maps(spec, x_all, z_all)
+        k = torch.empty((n1, n2), dtype=torch.float32, device=device)
+        for i0, j0 in offsets:
+            with timing.span("gram.tile", i0=i0, j0=j0):
+                blk = _tile_body(model, spec, x_all, z_all, i0, j0, b,
+                                 symmetric, maps)
+                bi, bj = blk.shape
+                if symmetric and i0 == j0:
+                    blk = torch.triu(blk) + torch.triu(blk, 1).T
+                k[i0:i0 + bi, j0:j0 + bj] = blk
+                if symmetric and i0 != j0:
+                    k[j0:j0 + bj, i0:i0 + bi] = blk.T
     return k
 
 

@@ -17,25 +17,55 @@ PyTorch counterpart of ``cnn_gp_tpu/parallel/gram.py``:
 * Work is split across workers with the reference's contiguous spans
   (``parallel/scheduler.py``), so shard files merge the same way, and
   tile-level resume skips completed tiles.
+* Each Gram-level call is a ``gram.call`` span (``call_span``) over a
+  ``gram.prepass`` and one ``gram.tile`` per tile (``utils/timing.py``);
+  the ``progress`` printout is read from them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
-import time
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..kernels import apply_kernel
-from ..ops import megakernel
+from ..ops import arccos, boxfilter, megakernel
+from ..utils import timing
 from ..utils.timing import print_timings
 from . import scheduler
 
 __all__ = ["compute_gram", "compute_gram_diag", "save_K", "gram_in_memory",
-           "check_block_finite", "set_maps"]
+           "check_block_finite", "set_maps", "call_span"]
+
+# the launch counters whose change over a Gram call its span reports
+_COUNTERS = ((megakernel, ("launches", "prepass_launches")),
+             (boxfilter, ("launches", "prologue_launches",
+                          "epilogue_launches", "vjp_launches")),
+             (arccos, ("launches", "vjp_launches")))
+
+
+def _launch_counts() -> dict:
+    return {f"{m.__name__.rsplit('.', 1)[-1]}.{c}": getattr(m, c)
+            for m, names in _COUNTERS for c in names}
+
+
+@contextlib.contextmanager
+def call_span(entry: str, n1: int, n2: int, b: int):
+    """The ``gram.call`` span of one Gram-level call (``entry``, the
+    sizes; the caller ``set``s ``tiles``), with each launch counter's
+    change over the call as an attr (``megakernel.launches`` and so on).
+    Yields the span, or the do-nothing one when spans do not record."""
+    if not timing.on():
+        yield timing.span("gram.call")
+        return
+    before = _launch_counts()
+    with timing.span("gram.call", entry=entry, n1=n1, n2=n2, b=b) as s:
+        yield s
+        s.set(**{k: v - before[k] for k, v in _launch_counts().items()})
 
 
 def set_maps(spec, x_all, z_all=None):
@@ -46,10 +76,11 @@ def set_maps(spec, x_all, z_all=None):
     new spec needs new maps."""
     if spec is None:
         return None
-    dx = megakernel.diag_maps(spec, x_all)
-    if z_all is None or z_all is x_all:
-        return dx, dx
-    return dx, megakernel.diag_maps(spec, z_all)
+    with timing.span("gram.prepass"):
+        dx = megakernel.diag_maps(spec, x_all)
+        if z_all is None or z_all is x_all:
+            return dx, dx
+        return dx, megakernel.diag_maps(spec, z_all)
 
 
 def _tile_body(model, spec, x_all, z_all, i0, j0, b, symmetric, maps):
@@ -105,22 +136,22 @@ class _WriteQueue:
     The copies run on the producer's CUDA stream (``stream``; None on the
     CPU), so they are ordered after the launches that made the tiles.  The
     consumer owns all store/out writes.  A failure re-raises in the
-    producer at the next ``push``/``flush``.  ``phases`` accumulates
-    per-leg wall seconds (fetch / scan / write, and the producer's blocked
-    time)."""
+    producer at the next ``push``/``flush``.  Spans: per tile the
+    consumer's ``gram.fetch``, ``gram.scan`` and ``gram.write``, children
+    of the span open where the queue was made (the call's ``gram.call``),
+    and the producer's ``gram.blocked`` waits."""
 
     def __init__(self, write, stream=None, depth: int = 2):
         self.write = write
         self.stream = stream
-        self.phases = {"fetch": 0.0, "scan": 0.0, "write": 0.0,
-                       "blocked": 0.0}
+        self._parent = timing.current()
         self._q = queue.Queue(maxsize=depth)
         self._err = []
         self._t = threading.Thread(target=self._consume, daemon=True)
         self._t.start()
 
     def _consume(self):
-        with torch.cuda.stream(self.stream):
+        with torch.cuda.stream(self.stream), timing.attached(self._parent):
             while True:
                 item = self._q.get()
                 if item is None:
@@ -133,20 +164,16 @@ class _WriteQueue:
 
     def _drain_one(self, item):
         i0, j0, dev_block = item
-        t0 = time.perf_counter()
-        block = dev_block.cpu().numpy()
-        t1 = time.perf_counter()
-        check_block_finite(block, i0, j0)
-        t2 = time.perf_counter()
-        self.write(i0, j0, block)
-        self.phases["fetch"] += t1 - t0
-        self.phases["scan"] += t2 - t1
-        self.phases["write"] += time.perf_counter() - t2
+        with timing.span("gram.fetch"):
+            block = dev_block.cpu().numpy()
+        with timing.span("gram.scan"):
+            check_block_finite(block, i0, j0)
+        with timing.span("gram.write"):
+            self.write(i0, j0, block)
 
     def push(self, i0, j0, dev_block):
-        t0 = time.perf_counter()
-        self._put((i0, j0, dev_block))     # blocks at depth
-        self.phases["blocked"] += time.perf_counter() - t0
+        with timing.span("gram.blocked"):
+            self._put((i0, j0, dev_block))     # blocks at depth
 
     def _put(self, item):
         # a consumer that errored stops draining, so a plain put could
@@ -163,15 +190,14 @@ class _WriteQueue:
     def flush(self):
         """Stop the consumer after the queued tiles (also after a producer
         failure) and re-raise its failure, if any."""
-        t0 = time.perf_counter()
-        while self._t.is_alive():
-            try:
-                self._q.put(None, timeout=1.0)
-                break
-            except queue.Full:
-                continue
-        self._t.join()
-        self.phases["blocked"] += time.perf_counter() - t0
+        with timing.span("gram.blocked"):
+            while self._t.is_alive():
+                try:
+                    self._q.put(None, timeout=1.0)
+                    break
+                except queue.Full:
+                    continue
+            self._t.join()
         if self._err:
             raise self._err[0]
 
@@ -188,70 +214,78 @@ def compute_gram(model, X, Z=None, *, device, batch_size: int = 200,
     Z=None computes the symmetric upper triangle of K(X, X).  Results go
     to ``store[name]`` (HDF5, resumable) and/or an in-memory ``out``
     array.  Returns the ``out`` array if one was used, else None.
+    ``progress`` prints the progress line and, at the end, the call's
+    rate and host seconds from its spans.
     """
     symmetric = Z is None
     n1 = len(X)
     n2 = n1 if symmetric else len(Z)
     b = batch_size
-
-    manifest = scheduler.worker_manifest(n1, n2, b, symmetric, worker_rank,
-                                         n_workers)
-    if store is not None:
-        assert name is not None
-        store.create(name, n1, n2, b)
-        n_before = len(manifest)
-        done = store.done_mask(name)  # one bulk read, not T point reads
-        manifest = manifest[~done[manifest[:, 1], manifest[:, 2]]
-                            .astype(bool)]
-        if out is not None and len(manifest) < n_before:
-            # resume with an in-memory output: backfill the skipped tiles
-            _backfill_out(out, store.read(name), symmetric, symmetrize_out)
-    if out is None and store is None:
-        out = np.full((n1, n2), np.nan, np.float32)
-
-    device = torch.device(device)
-    x_all = _on_device(X, device)
-    z_all = x_all if symmetric else _on_device(Z, device)
-    spec = megakernel.match(model)
-
-    def write(i0, j0, block):
+    with (timing.recording() if progress else contextlib.nullcontext()
+          ) as found, call_span("compute_gram", n1, n2, b) as call:
+        manifest = scheduler.worker_manifest(n1, n2, b, symmetric,
+                                             worker_rank, n_workers)
         if store is not None:
-            store.write_tile(name, i0, j0, block)
-        if out is not None:
-            out[i0:i0 + block.shape[0], j0:j0 + block.shape[1]] = block
-            if symmetric and symmetrize_out and i0 != j0:
-                out[j0:j0 + block.shape[1], i0:i0 + block.shape[0]] = block.T
+            assert name is not None
+            store.create(name, n1, n2, b)
+            n_before = len(manifest)
+            done = store.done_mask(name)  # one bulk read, not T point reads
+            manifest = manifest[~done[manifest[:, 1], manifest[:, 2]]
+                                .astype(bool)]
+            if out is not None and len(manifest) < n_before:
+                # resume with an in-memory output: backfill the skipped
+                # tiles
+                _backfill_out(out, store.read(name), symmetric,
+                              symmetrize_out)
+        if out is None and store is None:
+            out = np.full((n1, n2), np.nan, np.float32)
 
-    stream = (torch.cuda.current_stream(device) if device.type == "cuda"
-              else None)
-    wq = _WriteQueue(write, stream)
-    offsets = manifest[:, 1:3].astype(np.int64) * b
-    it = iter(offsets)
-    if progress:
-        it = print_timings(it, desc=desc or name or "gram",
-                           print_interval=print_interval, total=len(offsets))
-    t_all = time.perf_counter()
-    t_dispatch = 0.0
-    entries = 0
-    # one pre-pass per image set (none when a resume left nothing to do)
-    maps = set_maps(spec, x_all, z_all) if len(offsets) else None
-    try:
-        for i0, j0 in it:
-            i0, j0 = int(i0), int(j0)
-            t0 = time.perf_counter()
-            dev = _tile_body(model, spec, x_all, z_all, i0, j0, b, symmetric,
-                             maps)
-            t_dispatch += time.perf_counter() - t0
-            entries += dev.numel()
-            wq.push(i0, j0, dev)
-    finally:
-        wq.flush()
-    if progress and manifest.size:
-        ph = {k: round(v, 1) for k, v in wq.phases.items()}
-        total = time.perf_counter() - t_all
-        meps = entries / max(total, 1e-9) / 1e6
-        print(f"[{desc or name or 'gram'}] {meps:.2f}M entries/s: total "
-              f"{total:.1f}s  dispatch {t_dispatch:.1f}s  consumer {ph}",
+        device = torch.device(device)
+        x_all = _on_device(X, device)
+        z_all = x_all if symmetric else _on_device(Z, device)
+        spec = megakernel.match(model)
+
+        def write(i0, j0, block):
+            if store is not None:
+                store.write_tile(name, i0, j0, block)
+            if out is not None:
+                out[i0:i0 + block.shape[0], j0:j0 + block.shape[1]] = block
+                if symmetric and symmetrize_out and i0 != j0:
+                    out[j0:j0 + block.shape[1],
+                        i0:i0 + block.shape[0]] = block.T
+
+        stream = (torch.cuda.current_stream(device)
+                  if device.type == "cuda" else None)
+        offsets = manifest[:, 1:3].astype(np.int64) * b
+        call.set(tiles=len(offsets))
+        wq = _WriteQueue(write, stream)
+        it = iter(offsets)
+        if progress:
+            it = print_timings(it, desc=desc or name or "gram",
+                               print_interval=print_interval,
+                               total=len(offsets))
+        # one pre-pass per image set (none when a resume left nothing to do)
+        maps = set_maps(spec, x_all, z_all) if len(offsets) else None
+        try:
+            for i0, j0 in it:
+                i0, j0 = int(i0), int(j0)
+                with timing.span("gram.tile", i0=i0, j0=j0):
+                    dev = _tile_body(model, spec, x_all, z_all, i0, j0, b,
+                                     symmetric, maps)
+                wq.push(i0, j0, dev)
+        finally:
+            wq.flush()
+    if progress and len(offsets):
+        t = timing.seconds(found, "gram.call", "gram.tile", "gram.fetch",
+                           "gram.scan", "gram.write", "gram.blocked")
+        entries = sum(min(b, n1 - i0) * min(b, n2 - j0)
+                      for i0, j0 in offsets)
+        total = t.pop("gram.call")
+        dispatch = t.pop("gram.tile")
+        ph = {k.split(".")[1]: round(v, 1) for k, v in t.items()}
+        print(f"[{desc or name or 'gram'}] "
+              f"{entries / max(total, 1e-9) / 1e6:.2f}M entries/s: total "
+              f"{total:.1f}s  dispatch {dispatch:.1f}s  consumer {ph}",
               flush=True)
     return out
 

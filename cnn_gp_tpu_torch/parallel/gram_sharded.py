@@ -23,12 +23,17 @@ one process (``parallel/mesh.py``) and the same call runs on every rank:
 * a round's host work (the copy, the finiteness check, the writes) runs
   while the card computes the next round.  Every rank checks the same
   gathered blocks, so a non-finite value stops every rank in the same
-  round.
+  round;
+* spans (``utils/timing.py``): the call's ``gram.call``, its
+  ``gram.prepass``, and per round a ``gram.round`` holding its
+  ``gram.tile``s, its ``gram.all_gather`` (attr ``bytes``, the gathered
+  bytes) and the previous round's ``gram.wait`` (for its copy to the
+  host) and ``gram.write``; ``progress`` prints rank 0's from them.
 """
 
 from __future__ import annotations
 
-import time
+import contextlib
 from typing import Optional
 
 import numpy as np
@@ -36,6 +41,7 @@ import torch
 import torch.distributed as dist
 
 from ..ops import megakernel
+from ..utils import timing
 from ..utils.timing import print_timings
 from . import gram, scheduler
 from .mesh import Mesh, make_mesh
@@ -135,109 +141,122 @@ def compute_gram_sharded(model, X, Z=None, *, batch_size: int = 200,
     n2 = n1 if symmetric else len(Z)
     b = batch_size
 
-    manifest = scheduler.worker_manifest(n1, n2, b, symmetric)
-    offsets = manifest[:, 1:3].astype(np.int64) * b  # [T, 2] offsets
-    n_total = len(offsets)
-    keep = np.ones(n_total, bool)
-    has_store = rank == 0 and store is not None
-    if has_store:
-        assert name is not None
-        store.create(name, n1, n2, b)
-        done = store.done_mask(name)  # one bulk read, not T point reads
-        keep = ~done[manifest[:, 1], manifest[:, 2]].astype(bool)
-    keep, has_store, others_want = _agree(mesh, keep, has_store,
-                                          out is not None)
-    offsets = offsets[keep]
-    n_tiles = len(offsets)
-    if has_store and n_tiles < n_total:
-        if others_want:
-            _backfill_every_rank(mesh, store.read(name) if rank == 0
-                                 else None, out, (n1, n2), symmetric,
-                                 symmetrize_out)
-        elif out is not None:
-            gram._backfill_out(out, store.read(name), symmetric,
-                               symmetrize_out)
-    if out is None and not has_store:
-        out = np.full((n1, n2), np.nan, np.float32)
-    if n_tiles == 0:
-        # fully resumed (or empty): nothing to compute, nothing uploaded
-        return out
-
-    # ONE upload per set, reused by every round
-    x_dev = gram._on_device(X, device)
-    z_dev = x_dev if symmetric else gram._on_device(Z, device)
-    spec = megakernel.match(model)
-    # each rank's pre-pass: the maps of the sets it tiles, once per call
-    maps = gram.set_maps(spec, x_dev, z_dev)
-
-    def write(i0, j0, block):
-        ni, nj = min(b, n1 - i0), min(b, n2 - j0)
-        block = block[:ni, :nj]
-        gram.check_block_finite(block, i0, j0)
-        if rank == 0 and store is not None:
-            store.write_tile(name, i0, j0, block)
-        if out is not None:
-            out[i0:i0 + ni, j0:j0 + nj] = block
-            if symmetric and symmetrize_out and i0 != j0:
-                out[j0:j0 + nj, i0:i0 + ni] = block.T
-
-    phases = {"dispatch": 0.0, "wait": 0.0, "write": 0.0}
-
-    def drain(chunk, host, done):
-        t0 = time.perf_counter()
-        if done is not None:
-            done.synchronize()
-        t1 = time.perf_counter()
-        # gathered[d, k] is chunk[k * size + d]: undo the deal
-        blocks = host.numpy().transpose(1, 0, 2, 3).reshape(-1, b, b)
-        for (i0, j0), blk in zip(chunk, blocks):
-            write(int(i0), int(j0), blk)
-        phases["wait"] += t1 - t0
-        phases["write"] += time.perf_counter() - t1
-
-    round_tiles = size * tiles_per_round_per_device
-    rounds = range(0, n_tiles, round_tiles)
     show = progress and rank == 0
+    with (timing.recording() if show else contextlib.nullcontext()
+          ) as found, gram.call_span("compute_gram_sharded", n1, n2,
+                                     b) as call:
+        manifest = scheduler.worker_manifest(n1, n2, b, symmetric)
+        offsets = manifest[:, 1:3].astype(np.int64) * b  # [T, 2] offsets
+        n_total = len(offsets)
+        keep = np.ones(n_total, bool)
+        has_store = rank == 0 and store is not None
+        if has_store:
+            assert name is not None
+            store.create(name, n1, n2, b)
+            done = store.done_mask(name)  # one bulk read, not T point reads
+            keep = ~done[manifest[:, 1], manifest[:, 2]].astype(bool)
+        keep, has_store, others_want = _agree(mesh, keep, has_store,
+                                              out is not None)
+        offsets = offsets[keep]
+        n_tiles = len(offsets)
+        call.set(tiles=n_tiles)
+        if has_store and n_tiles < n_total:
+            if others_want:
+                _backfill_every_rank(mesh, store.read(name) if rank == 0
+                                     else None, out, (n1, n2), symmetric,
+                                     symmetrize_out)
+            elif out is not None:
+                gram._backfill_out(out, store.read(name), symmetric,
+                                   symmetrize_out)
+        if out is None and not has_store:
+            out = np.full((n1, n2), np.nan, np.float32)
+        if n_tiles == 0:
+            # fully resumed (or empty): nothing to compute, nothing uploaded
+            return out
+
+        # ONE upload per set, reused by every round
+        x_dev = gram._on_device(X, device)
+        z_dev = x_dev if symmetric else gram._on_device(Z, device)
+        spec = megakernel.match(model)
+        # each rank's pre-pass: the maps of the sets it tiles, once per call
+        maps = gram.set_maps(spec, x_dev, z_dev)
+
+        def write(i0, j0, block):
+            ni, nj = min(b, n1 - i0), min(b, n2 - j0)
+            block = block[:ni, :nj]
+            gram.check_block_finite(block, i0, j0)
+            if rank == 0 and store is not None:
+                store.write_tile(name, i0, j0, block)
+            if out is not None:
+                out[i0:i0 + ni, j0:j0 + nj] = block
+                if symmetric and symmetrize_out and i0 != j0:
+                    out[j0:j0 + nj, i0:i0 + ni] = block.T
+
+        def drain(chunk, host, done):
+            with timing.span("gram.wait"):
+                if done is not None:
+                    done.synchronize()
+            with timing.span("gram.write"):
+                # gathered[d, k] is chunk[k * size + d]: undo the deal
+                blocks = host.numpy().transpose(1, 0, 2, 3).reshape(-1, b, b)
+                for (i0, j0), blk in zip(chunk, blocks):
+                    write(int(i0), int(j0), blk)
+
+        round_tiles = size * tiles_per_round_per_device
+        rounds = range(0, n_tiles, round_tiles)
+        if show:
+            rounds = print_timings(iter(list(rounds)),
+                                   desc=name or "gram[ranks]",
+                                   print_interval=print_interval,
+                                   total=len(rounds))
+        pending = None
+        for r0 in rounds:
+            with timing.span("gram.round", r0=int(r0)):
+                chunk = offsets[r0:r0 + round_tiles]
+                n_valid = len(chunk)
+                # pad to a multiple of size; padded tiles recompute tile 0
+                # and are dropped on write (every rank gathers the same
+                # count)
+                pad = (-n_valid) % size
+                if pad:
+                    chunk = np.concatenate([chunk,
+                                            np.repeat(chunk[:1], pad, 0)])
+                t_local = len(chunk) // size
+                send = torch.zeros((t_local, b, b), dtype=torch.float32,
+                                   device=device)
+                for k, (i0, j0) in enumerate(chunk[rank::size]):
+                    i0, j0 = int(i0), int(j0)
+                    with timing.span("gram.tile", i0=i0, j0=j0):
+                        blk = gram._tile_body(model, spec, x_dev, z_dev, i0,
+                                              j0, b, symmetric, maps)
+                        send[k, :blk.shape[0], :blk.shape[1]] = blk
+                if mesh.group is None:
+                    gathered = send[None]
+                else:
+                    gathered = torch.empty((size, t_local, b, b),
+                                           dtype=torch.float32, device=device)
+                    with timing.span("gram.all_gather",
+                                     bytes=gathered.nbytes):
+                        dist.all_gather(list(gathered.unbind(0)), send,
+                                        group=mesh.group)
+                host, done = _to_host(gathered)
+                if pending is not None:
+                    drain(*pending)
+                pending = (chunk[:n_valid], host, done)
+        drain(*pending)
     if show:
-        rounds = print_timings(iter(list(rounds)),
-                               desc=name or "gram[ranks]",
-                               print_interval=print_interval,
-                               total=len(rounds))
-    t_all = time.perf_counter()
-    pending = None
-    for r0 in rounds:
-        t0 = time.perf_counter()
-        chunk = offsets[r0:r0 + round_tiles]
-        n_valid = len(chunk)
-        # pad to a multiple of size; padded tiles recompute tile 0 and are
-        # dropped on write (every rank gathers the same count)
-        pad = (-n_valid) % size
-        if pad:
-            chunk = np.concatenate([chunk, np.repeat(chunk[:1], pad, 0)])
-        t_local = len(chunk) // size
-        send = torch.zeros((t_local, b, b), dtype=torch.float32,
-                           device=device)
-        for k, (i0, j0) in enumerate(chunk[rank::size]):
-            blk = gram._tile_body(model, spec, x_dev, z_dev, int(i0),
-                                  int(j0), b, symmetric, maps)
-            send[k, :blk.shape[0], :blk.shape[1]] = blk
-        if mesh.group is None:
-            gathered = send[None]
-        else:
-            gathered = torch.empty((size, t_local, b, b),
-                                   dtype=torch.float32, device=device)
-            dist.all_gather(list(gathered.unbind(0)), send,
-                            group=mesh.group)
-        host, done = _to_host(gathered)
-        phases["dispatch"] += time.perf_counter() - t0
-        if pending is not None:
-            drain(*pending)
-        pending = (chunk[:n_valid], host, done)
-    drain(*pending)
-    if show:
-        total = time.perf_counter() - t_all
+        t = timing.seconds(found, "gram.call", "gram.round")
+        # a round drains the round before it; the last drain is the call's
+        drained = timing.seconds(found, "gram.wait", "gram.write", parents=[
+            sp.id for sp in found if sp.name == "gram.round"])
+        last = timing.seconds(found, "gram.wait", "gram.write",
+                              parents=[call.id])
+        ph = {"dispatch": t["gram.round"] - sum(drained.values()),
+              "wait": drained["gram.wait"] + last["gram.wait"],
+              "write": drained["gram.write"] + last["gram.write"]}
+        total = t["gram.call"]
         meps = n_tiles * b * b / max(total, 1e-9) / 1e6
-        ph = ", ".join(f"{k} {v:.3f}s" for k, v in phases.items())
+        ph = ", ".join(f"{k} {v:.3f}s" for k, v in ph.items())
         print(f"[{name or 'gram[ranks]'}] {meps:.2f}M entries/s over "
               f"{size} rank(s): total {total:.3f}s ({ph})", flush=True)
     return out

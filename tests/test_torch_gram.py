@@ -19,6 +19,7 @@ from cnn_gp_tpu_torch.ops import megakernel
 from cnn_gp_tpu_torch.parallel import gram as tgram_mod
 from cnn_gp_tpu_torch.parallel import (compute_gram, compute_gram_diag,
                                        gram_in_memory, save_K)
+from cnn_gp_tpu_torch.utils import timing
 
 B = 10
 
@@ -271,23 +272,23 @@ def test_non_finite_tile_refused_and_not_marked(data, tmp_path):
 
 
 def test_write_queue_phases(data, tmp_path):
+    """The write queue's legs are spans: per tile the consumer thread's
+    gram.fetch, gram.scan and gram.write, under the call's gram.call, and
+    the producer's gram.blocked waits, each with a non-negative wall."""
     x, _ = data
-    captured = []
-    orig = tgram_mod._WriteQueue.flush
-
-    def spy(self):
-        orig(self)
-        captured.append(dict(self.phases))
-
-    tgram_mod._WriteQueue.flush = spy
-    try:
+    with timing.recording() as found:
         with TStore(str(tmp_path / "p.h5"), "w") as s:
             compute_gram(strided(T), x, device="cpu", batch_size=B,
                          store=s, name="Kxx", progress=False)
-    finally:
-        tgram_mod._WriteQueue.flush = orig
-    assert set(captured[-1]) == {"fetch", "scan", "write", "blocked"}
-    assert all(v >= 0.0 for v in captured[-1].values())
+    call, = [sp for sp in found if sp.name == "gram.call"]
+    for leg in ("gram.fetch", "gram.scan", "gram.write"):
+        legs = [sp for sp in found if sp.name == leg]
+        assert len(legs) == call.attrs["tiles"]
+        assert all(sp.parent == call.id and sp.thread != call.thread
+                   for sp in legs)
+    blocked = [sp for sp in found if sp.name == "gram.blocked"]
+    assert blocked and all(sp.thread == call.thread for sp in blocked)
+    assert all(sp.seconds >= 0.0 for sp in found)
 
 
 def test_scheduler_matches_jax():
