@@ -19,10 +19,10 @@ name the leaves.  Three paths to the negative marginal log-likelihood:
   ``apply_kernel`` call and a float32 ``torch.linalg.cholesky``: small N,
   and the oracle of the tests.
 * ``nmll_value_and_grad_tiled`` / ``fit_large(grad="exact")``: the Gram
-  from ``gram_in_memory`` (the CUDA megakernel for the ConvNet-GP family),
-  the value and the cotangent ``dL/dK = 0.5 (C K^-1 - A A^T)`` in float64
-  on the host, and the gradient as tile VJPs over the upper tile triangle
-  on the device.
+  from ``gram_device`` (the CUDA megakernel for the ConvNet-GP family),
+  kept on the device, the value and the cotangent
+  ``dL/dK = 0.5 (C K^-1 - A A^T)`` in float64 on that one device, and the
+  gradient as tile VJPs over the upper tile triangle there.
 * ``ProbedNMLL`` / ``fit_large(grad="probed")``: the equilibrated Gram
   assembled into the ``CardFactor`` buffer, the value from the factor's
   log-diagonal, and the trace term of the cotangent estimated with
@@ -53,10 +53,11 @@ from . import settings
 from .convert import leaf_items, load_leaves, save_leaves
 from .kernels import apply_kernel
 from .parallel import scheduler
-from .parallel.chol_dist import _factor_for, _mesh_device
+from .parallel.chol_dist import CardFactor, _factor_for, _mesh_device
 from .parallel.device_large import _assemble_scaled, _matvec_scan
+from .parallel.device_pipeline import gram_device
 from .parallel.mesh import agree, broadcast_array, is_root
-from .parallel.gram import _on_device, compute_gram_diag, gram_in_memory
+from .parallel.gram import _on_device, compute_gram_diag
 from .utils import timing
 
 __all__ = ["neg_marginal_log_likelihood", "fit",
@@ -74,7 +75,7 @@ _POSITIVE_LEAVES = ("var_weight", "var_bias")
 _POSITIVE_FLOOR = 1e-12
 # why fit_large refuses a rank group with exact gradients
 MESH_NEEDS_PROBED = ("mesh= row-shards the probed path's factor; "
-                     "grad='exact' solves on the host")
+                     "grad='exact' factors on one device")
 
 
 def _is_positive(key: str) -> bool:
@@ -214,7 +215,7 @@ def _tile_vjp_sweep(model, x_all: torch.Tensor, tiles, cotangent,
     return {k: a.cpu().numpy() for (k, _), a in zip(items, acc)}
 
 
-# the exact step's phases and the parts of its host float64 phase
+# the exact step's phases and the parts of its float64 phase
 _EXACT_PHASES = ("gram", "host_f64", "grad_vjp", "host_f64.copy",
                  "host_f64.cho_factor", "host_f64.cho_solve",
                  "host_f64.dpotri", "host_f64.cotangent")
@@ -234,22 +235,31 @@ def nmll_value_and_grad_tiled(model, x, y, jitter: float = 1e-6,
 
     The objective of :func:`neg_marginal_log_likelihood` (the NMLL of
     ``K + s jitter I``, ``s = mean(diag K)`` held constant).  The Gram is
-    assembled in float32 tiles on ``device``; the value comes from a host
-    float64 Cholesky; the gradient is exact through the evidence identity
+    assembled in float32 tiles on ``device`` (``gram_device``: exactly
+    symmetric) and stays there; the value and the cotangent come from one
+    float64 Cholesky on the same device (``CardFactor``; LAPACK on the
+    CPU); the gradient is exact through the evidence identity
     ``dL/dK = 0.5 (C K^-1 - A A^T)`` (A the [N, C] solve), contracted with
     tile VJPs over the upper tile triangle, weighted 1 on the diagonal
-    and 2 above it (K and dL/dK are both symmetric).  Returns ``(loss,
-    grads)``: a float64 value and float32-accumulated gradients.
+    and 2 above it (K and dL/dK are both symmetric).  Only Y, the Gram's
+    finite flag, the factor's info check and the loss cross between host
+    and device.  Returns ``(loss, grads)``: a float64 value and
+    float32-accumulated gradients.  Raises ``FloatingPointError`` for a
+    non-finite Gram and ``np.linalg.LinAlgError`` for a system that is
+    not positive-definite.
 
-    Spans: ``fit.gram`` (the tile sweep, ending in the Gram's copy to the
-    host), ``fit.host_f64`` (its children ``fit.host_f64.copy`` (the
-    float64 copy and jitter), ``.cho_factor``, ``.cho_solve``, ``.dpotri``
-    (with the symmetrisation) and ``.cotangent`` (built and uploaded)) and
-    ``fit.grad_vjp`` (the VJP sweep, ending in the gradients' copy to the
-    host).  A dict passed as ``phases`` receives those three spans'
-    seconds as ``gram``, ``host_f64`` and ``grad_vjp``."""
-    import scipy.linalg
-
+    Spans: ``fit.gram`` (the tile sweep, ending in the finite flag's
+    readback), ``fit.host_f64`` (the float64 phase, with attrs ``device``
+    and ``host_bytes``, the bytes it and ``fit.gram`` moved between host
+    and device; its children ``fit.host_f64.copy`` (the float64 upcast,
+    jitter and Y's upload), ``.cho_factor``, ``.cho_solve`` (with the
+    loss), ``.dpotri`` (the inverse and its symmetrisation) and
+    ``.cotangent`` (built in float64, cast to float32, then the loss's
+    readback)) and ``fit.grad_vjp`` (the VJP sweep, ending in the
+    gradients' copy to the host).  On the card they are host time: a
+    child's card work may finish in a later child.  A dict passed as
+    ``phases`` receives the three phases' seconds as ``gram``,
+    ``host_f64`` and ``grad_vjp``."""
     device = torch.device(device)
     settings.check_precision_on(device)
     with (timing.recording() if phases is not None
@@ -259,35 +269,48 @@ def nmll_value_and_grad_tiled(model, x, y, jitter: float = 1e-6,
         n, c = len(x_all), y64.shape[1]
         b = min(batch_size, n)
 
-        # 1) K by the tile sweeps (the megakernel for matched models)
+        # 1) K by the tile sweeps (the megakernel for matched models),
+        # left on the device
         with timing.span("fit.gram"):
-            k = gram_in_memory(model, x_all, device=device, batch_size=b,
-                               progress=False)
+            k = gram_device(model, x_all, batch_size=b, device=device)
+            if not bool(torch.isfinite(k).all()):
+                i, j = (int(v) for v in torch.nonzero(~torch.isfinite(k))[0])
+                raise FloatingPointError(
+                    f"non-finite kernel value at Gram element ({i}, {j}). "
+                    f"Check var_weight/var_bias scales or input data.")
 
-        # 2) value and dL/dK in float64 from one Cholesky; the host float64
-        # copy, O(N^2), is the ceiling of this path
-        with timing.span("fit.host_f64"):
+        # 2) value and dL/dK in float64 from one Cholesky on the Gram's
+        # device; at most two float64 N^2 buffers of ours at once
+        with timing.span("fit.host_f64", device=str(x_all.device)) as phase:
             with timing.span("fit.host_f64.copy"):
-                k = np.asarray(k, np.float64)
-                s = float(np.mean(np.diagonal(k)))
-                k.flat[:: n + 1] += s * jitter
+                k64 = k.to(torch.float64)
+                del k
+                k64.diagonal().add_(jitter * k64.diagonal().mean())
+                y_dev = torch.from_numpy(y64).to(device)
             with timing.span("fit.host_f64.cho_factor"):
-                cho = scipy.linalg.cho_factor(k, lower=True)
+                factor = CardFactor.of(k64)   # in place: k64 is the factor
+                del k64
             with timing.span("fit.host_f64.cho_solve"):
-                alpha = scipy.linalg.cho_solve(cho, y64)
-                loss = (0.5 * float(np.sum(y64 * alpha))
-                        + c * float(np.sum(np.log(np.diagonal(cho[0])))))
+                a = factor.solve_dev(y_dev)
+                loss = (0.5 * (y_dev * a).sum()
+                        + c * torch.log(factor.l.diagonal()).sum())
             with timing.span("fit.host_f64.dpotri"):
-                kinv, info = scipy.linalg.lapack.dpotri(cho[0], lower=True)
-                if info != 0:
-                    raise np.linalg.LinAlgError(
-                        f"dpotri failed: info={info}")
-                kinv = np.tril(kinv) + np.tril(kinv, -1).T
+                kinv = torch.cholesky_inverse(factor.l)
+                factor.release()
+                del factor
+                low = kinv.tril(-1)           # the lower triangle mirrored
+                kinv.tril_().add_(low.mT)
+                del low
             with timing.span("fit.host_f64.cotangent"):
-                gbar = torch.as_tensor(
-                    (0.5 * (c * kinv - alpha @ alpha.T)).astype(np.float32),
-                    device=device)
-            del k, kinv
+                # 0.5 (C K^-1 - A A^T) in place, then one cast
+                kinv.addmm_(a, a.mT, beta=c, alpha=-1.0).mul_(0.5)
+                gbar = kinv.to(torch.float32,
+                               memory_format=torch.contiguous_format)
+                del kinv
+                loss = float(loss)
+            # Y up, the finite flag and the loss down (the factor's info
+            # check reads back a count of its own)
+            phase.set(host_bytes=y64.nbytes + 1 + 8)
 
         # 3) the gradient: tile VJPs against gbar over the upper triangle
         with timing.span("fit.grad_vjp"):

@@ -3,10 +3,11 @@ on a hard task and compare against the paper's random-searched values.
 
 PyTorch counterpart of ``scripts/fit_paper_scale.py``.  Per-layer
 learnable (var_weight, var_bias) leaves of the paper ConvNet are fitted by
-``cnn_gp_tpu_torch.fit.fit_large`` (``--grad=exact``: tiled Gram, host
-float64 value, tile-VJP gradients; ``--grad=probed``: the card-resident
-Hutchinson path) on the hard MNIST-like task, then held-out accuracy,
-train log evidence and held-out log predictive density are printed for
+``cnn_gp_tpu_torch.fit.fit_large`` (``--grad=exact``: tiled Gram, float64
+value and inverse on the same device, tile-VJP gradients;
+``--grad=probed``: the card-resident Hutchinson path) on the hard
+MNIST-like task, then held-out accuracy, train log evidence and held-out
+log predictive density are printed for
 
     init   -- the mis-initialised start,
     paper  -- the paper's 2.79 / 7.86,
@@ -20,7 +21,7 @@ With ``--coordinator_address`` (``--num_processes`` / ``--process_id``, or
 row-sharded over the group's ranks, as the JAX script spreads it over
 every local device; every rank takes the same steps and prints its rows,
 and rank 0 alone writes ``--save_fitted`` and prints the summary.
-``--grad=exact`` solves on the host and refuses a group.
+``--grad=exact`` factors on one device and refuses a group.
 """
 
 import argparse
@@ -169,7 +170,7 @@ def main(argv=None):
     p.add_argument("--vb_init", type=float, default=1.0,
                    help="initial var_bias")
     p.add_argument("--grad", default="exact", choices=["exact", "probed"],
-                   help="'exact' (host float64 inverse) or 'probed' "
+                   help="'exact' (float64 inverse on the device) or 'probed' "
                         "(card-resident Hutchinson cotangents)")
     p.add_argument("--probes", type=int, default=16,
                    help="Hutchinson probe count (grad=probed)")

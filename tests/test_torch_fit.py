@@ -22,6 +22,8 @@ from cnn_gp_tpu_torch import settings
 from cnn_gp_tpu_torch.convert import from_jax_model, leaf_items
 from cnn_gp_tpu_torch.data import digits, hard_mnist
 from cnn_gp_tpu_torch.ops import megakernel
+from cnn_gp_tpu_torch.parallel import gram_device
+from cnn_gp_tpu_torch.utils import timing
 from scripts.fit_hyperparams import draw_gp_targets
 from scripts.fit_hyperparams import make_model as jax_conv_model
 
@@ -203,6 +205,84 @@ def test_tiled_nmll_matches_jax(name, n, b):
     whole = {k: g.numpy() for (k, _), g in zip(leaf_items(tm), grads)}
     assert abs(got_v - float(loss.detach())) < 1e-4 * abs(got_v)
     assert_grads_close(got_g, whole, 3e-3)
+
+
+def scipy_tiled_oracle(model, x, y, jitter, b):
+    """The exact step's value and gradients with scipy's float64 Cholesky,
+    solve and inverse on the host from the same ``gram_device`` K, the
+    cotangent contracted by the port's own VJP sweep."""
+    import scipy.linalg
+
+    k = gram_device(model, x, batch_size=b, device=CPU).numpy()
+    k = k.astype(np.float64)
+    n, c = y.shape
+    k.flat[:: n + 1] += jitter * np.mean(np.diagonal(k))
+    cho = scipy.linalg.cho_factor(k, lower=True)
+    y64 = np.asarray(y, np.float64)
+    a = scipy.linalg.cho_solve(cho, y64)
+    loss = 0.5 * np.sum(y64 * a) + c * np.sum(np.log(np.diagonal(cho[0])))
+    kinv = scipy.linalg.cho_solve(cho, np.eye(n))
+    gbar = torch.from_numpy((0.5 * (c * kinv - a @ a.T)).astype(np.float32))
+    tiles = [(i0, j0, 1.0 if i0 == j0 else 2.0)
+             for i0 in range(0, n, b) for j0 in range(i0, n, b)]
+    grads = tfit._tile_vjp_sweep(
+        model, torch.from_numpy(x), tiles,
+        lambda i0, j0, bi, bj: gbar[i0:i0 + bi, j0:j0 + bj], b)
+    return float(loss), grads
+
+
+@pytest.mark.parametrize("name,n,b", [("conv", 37, 16), ("mixture", 24, 8)])
+def test_tiled_nmll_matches_scipy_float64(name, n, b):
+    """The float64 phase on the Gram's device (torch's LAPACK here) against
+    scipy on the host from the same K: the loss within 1e-10, each leaf's
+    gradient within 1e-6."""
+    x, y = onehot_problem(n, 5)
+    tm = from_jax_model(MODELS[name]())
+    got_v, got_g = tfit.nmll_value_and_grad_tiled(tm, x, y, batch_size=b,
+                                                  device=CPU)
+    want_v, want_g = scipy_tiled_oracle(tm, x, y, 1e-6, b)
+    assert abs(got_v - want_v) <= 1e-10 * abs(want_v)
+    assert_grads_close(got_g, want_g, 1e-6)
+
+
+def test_tiled_nmll_refuses_an_indefinite_system():
+    """A negative jitter makes K + s jitter I indefinite: the factor
+    raises, as scipy's did."""
+    x, y = onehot_problem(24, 5)
+    with pytest.raises(np.linalg.LinAlgError, match="not positive-definite"):
+        tfit.nmll_value_and_grad_tiled(from_jax_model(MODELS["conv"]()), x, y,
+                                       jitter=-2.0, batch_size=8, device=CPU)
+
+
+def test_tiled_nmll_refuses_a_non_finite_gram(monkeypatch):
+    """One NaN in the Gram stops the step before the factor, naming the
+    element."""
+    real = tfit.gram_device
+
+    def one_nan(*args, **kw):
+        k = real(*args, **kw)
+        k[3, 5] = float("nan")
+        return k
+
+    monkeypatch.setattr(tfit, "gram_device", one_nan)
+    x, y = onehot_problem(24, 5)
+    with pytest.raises(FloatingPointError, match=r"element \(3, 5\)"):
+        tfit.nmll_value_and_grad_tiled(from_jax_model(MODELS["conv"]()), x, y,
+                                       batch_size=8, device=CPU)
+
+
+def test_tiled_nmll_float64_phase_stays_on_the_device():
+    """``fit.host_f64`` names the device its float64 phase ran on and the
+    bytes that crossed to or from the host: Y and a few scalars, never
+    the N^2 Gram or cotangent."""
+    x, y = onehot_problem(37, 5)
+    n, c = y.shape
+    with timing.recording() as found:
+        tfit.nmll_value_and_grad_tiled(from_jax_model(MODELS["conv"]()), x,
+                                       y, batch_size=16, device=CPU)
+    phase, = [s for s in found if s.name == "fit.host_f64"]
+    assert phase.attrs["device"] == "cpu"
+    assert n * c * 8 <= phase.attrs["host_bytes"] <= n * c * 8 + 1024
 
 
 # -- the fit loops ------------------------------------------------------------

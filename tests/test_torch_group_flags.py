@@ -151,8 +151,8 @@ def test_device_large_scale_classify_then_serve(tmp_path, capsys):
 
 
 def test_fit_paper_scale_exact_refuses_a_group(capsys):
-    """``--grad=exact`` solves on the host: with a group the script stops
-    before any work, with the library's reason."""
+    """``--grad=exact`` factors on one device: with a group the script
+    stops before any work, with the library's reason."""
     with pytest.raises(SystemExit):
         fit_paper_scale.main(["--grad=exact",
                               "--coordinator_address=localhost:1",
