@@ -9,6 +9,11 @@ as a tree of nodes:
     {"op": "seq", "layers": [...]}            layers in order
     {"op": "sum", "branches": [...]}          branches added
 
+Those are the nodes of the diagonal recursion (``recursions/diagonal.py``,
+which binds this module's ``parse``, ``gram_work`` and
+``fit_step_work``); a configuration that names another recursion is
+parsed and counted by that recursion's module.
+
 This module resolves that tree (``Conv.pad``, map sizes) and counts the
 FP32 operations and the bytes that a Gram call or a fit step needs, from
 the architecture and the tile shapes alone: never from kernel names or
@@ -40,6 +45,8 @@ import dataclasses
 import json
 import os
 from typing import List, Tuple, Union
+
+from . import recursions
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -110,10 +117,14 @@ def parse(node: dict):
 
 
 def load_config(name: str) -> dict:
-    """``configs/<name>.json`` with its model parsed under ``"tree"``."""
+    """``configs/<name>.json`` with its recursion's module under
+    ``"recursion"`` (``recursions/<r>.py``, the diagonal where the file
+    names none) and its model parsed by that module under ``"tree"``."""
     with open(os.path.join(ROOT, "configs", f"{name}.json")) as f:
         cfg = json.load(f)
-    cfg["tree"] = parse(cfg["model"])
+    rec = recursions.load(cfg.get("recursion", recursions.DEFAULT))
+    cfg["recursion"] = rec
+    cfg["tree"] = rec.parse(cfg["model"])
     return cfg
 
 

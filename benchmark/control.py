@@ -31,7 +31,7 @@ import torch
 if __name__ == "__main__":
     sys.path[0] = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-from benchmark import harness  # noqa: E402
+from benchmark import harness, recursions  # noqa: E402
 from benchmark.drivers import fit as fit_driver  # noqa: E402
 from benchmark.drivers import gram as gram_driver  # noqa: E402
 from benchmark.reference import fit as ref_fit  # noqa: E402
@@ -43,20 +43,21 @@ TF32 = {"dtype": torch.float32, "rounding": nngp.round_tf32}
 def gram_readings(cell: dict, seed: int, device) -> dict:
     sizes, mix = cell["sizes"], cell["mix"]
     n, b = int(sizes["n"]), int(sizes["batch_size"])
-    tree, shape = cell["cfg"]["tree"], tuple(cell["cfg"]["image_shape"])
+    rec, tree = cell["cfg"]["recursion"], cell["cfg"]["tree"]
+    shape = tuple(cell["cfg"]["image_shape"])
     x = gram_driver.images(seed, int(mix["image_sets"]), n, shape, device)
     pos = gram_driver.positions(n, b, sizes["sample_rows"],
                                 sizes["sample_cols"], seed)
     errs = []
     for s in range(int(mix["image_sets"])):
-        want = gram_driver.reference(tree, x[s], pos)
-        got = gram_driver.reference(tree, x[s], pos, **TF32)
+        want = gram_driver.reference(rec, tree, x[s], pos)
+        got = gram_driver.reference(rec, tree, x[s], pos, **TF32)
         errs.append(gram_driver.rel_err(got, want))
     return {"gram_rel_err": max(errs)}
 
 
-def _numbers(got: dict, want: dict, tree, m: int) -> dict:
-    raw0 = ref_fit.initial_raw(tree)
+def _numbers(got: dict, want: dict, rec, tree, m: int) -> dict:
+    raw0 = ref_fit.initial_raw(rec, tree)
     moved = np.abs(want["grad0"]) >= 1e-3 * np.median(np.abs(want["grad0"]))
     return {"loss_gap": float(np.max(np.abs(got["losses"] - want["losses"])
                                      / np.abs(want["losses"]))),
@@ -65,33 +66,36 @@ def _numbers(got: dict, want: dict, tree, m: int) -> dict:
                                          want["starts"][m] - raw0, moved)}
 
 
-def _half_batch(tree, x, y, raw, jitter, b, rounding, dtype):
+def _half_batch(rec, tree, x, y, raw, jitter, b, rounding, dtype):
     h = len(x) // 2
-    loss, g = ref_fit.value_and_grad(tree, x[:h], y[:h], raw, jitter, b,
-                                     rounding, dtype)
+    loss, g = ref_fit.value_and_grad(rec, tree, x[:h], y[:h], raw, jitter,
+                                     b, rounding, dtype)
     return 2 * loss, 2 * g
 
 
-def _altered(tree, x, y, raw, jitter, b, rounding, dtype):
-    loss, g = ref_fit.value_and_grad(tree, x, y, raw, jitter, b, rounding,
-                                     dtype)
+def _altered(rec, tree, x, y, raw, jitter, b, rounding, dtype):
+    loss, g = ref_fit.value_and_grad(rec, tree, x, y, raw, jitter, b,
+                                     rounding, dtype)
     return loss * 1.01, g
 
 
 def fit_readings(cell: dict, seed: int, device) -> dict:
     sizes, mix = cell["sizes"], cell["mix"]
     n, b = int(sizes["n"]), int(sizes["batch_size"])
-    tree, shape = cell["cfg"]["tree"], tuple(cell["cfg"]["image_shape"])
+    rec, tree = cell["cfg"]["recursion"], cell["cfg"]["tree"]
+    recursions.require_fit(rec)
+    shape = tuple(cell["cfg"]["image_shape"])
     m, jitter = int(mix["checked_steps"]), float(mix["jitter"])
     sets = int(mix["image_sets"])
     x = gram_driver.images(seed, sets, n, shape, device)[0]
     y = fit_driver.labels(seed, sets, n, int(mix["classes"]), device)[0]
-    want = ref_fit.follow(tree, x, y, m, jitter, b)
-    out = {"control": _numbers(ref_fit.follow(tree, x, y, m, jitter, b,
-                                              **TF32), want, tree, m)}
+    want = ref_fit.follow(rec, tree, x, y, m, jitter, b)
+    out = {"control": _numbers(ref_fit.follow(rec, tree, x, y, m, jitter, b,
+                                              **TF32), want, rec, tree, m)}
     for name, fn in (("half_batch", _half_batch), ("altered", _altered)):
-        got = ref_fit.follow(tree, x, y, m, jitter, b, value_and_grad_fn=fn)
-        out[name] = _numbers(got, want, tree, m)
+        got = ref_fit.follow(rec, tree, x, y, m, jitter, b,
+                             value_and_grad_fn=fn)
+        out[name] = _numbers(got, want, rec, tree, m)
     return out
 
 

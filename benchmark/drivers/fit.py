@@ -8,9 +8,13 @@ sets of images and labels drawn from the seed), ``classes`` and
 ``jitter``.  Cell sizes (``workloads/<cell>.json``): ``n``, ``batch_size``
 and the ``limits``.
 
+The configuration's recursion has to give the fit hooks
+(``recursions.FIT_HOOKS``); the driver refuses one that does not.
+
 What the check compares, on one call of the window drawn from the seed,
 against the plain reference's first ``checked_steps`` steps from the same
-images, labels and leaves (``reference/fit.py``, float64):
+images, labels and leaves (``reference/fit.py`` on the recursion's
+``block``, float64):
 
 * ``loss_gap``: the largest |L - L_ref| / |L_ref| of the losses the call
   returns for those steps;
@@ -36,7 +40,7 @@ import numpy as np
 import torch
 from torch.optim.optimizer import register_optimizer_step_post_hook
 
-from .. import arch, peaks, program
+from .. import arch, peaks, program, recursions
 from ..reference import fit as ref_fit
 from .gram import images
 
@@ -88,7 +92,8 @@ class Driver:
         self.mix = mix
         self.sets = int(mix["image_sets"])
         self.steps = int(mix["steps_per_call"])
-        self.tree = cell["cfg"]["tree"]
+        self.rec, self.tree = cell["cfg"]["recursion"], cell["cfg"]["tree"]
+        recursions.require_fit(self.rec)
         self.shape = tuple(cell["cfg"]["image_shape"])
         self.limits = sizes["limits"]
         self.kept = []
@@ -109,7 +114,7 @@ class Driver:
         self.x = images(self.seed, self.sets, self.n, self.shape, dev)
         self.y = labels(self.seed, self.sets, self.n,
                         int(self.mix["classes"]), dev)
-        self.model = program.build_model(self.tree, learnable=True)
+        self.model = self.rec.build_model(self.tree, learnable=True)
         self.fit = program.entries()["fit_large"]
         self._hook = register_optimizer_step_post_hook(self._record)
         # one step: the Gram's tiles, the host algebra, the VJP sweep
@@ -143,9 +148,10 @@ class Driver:
         k, s, losses, steps = kept[
             np.random.default_rng(self.seed).integers(len(kept))]
         m = int(self.mix["checked_steps"])
-        ref = ref_fit.follow(self.tree, self.x[s], self.y[s], steps=m,
-                             jitter=float(self.mix["jitter"]), b=self.b)
-        raw0 = ref_fit.initial_raw(self.tree)
+        ref = ref_fit.follow(self.rec, self.tree, self.x[s], self.y[s],
+                             steps=m, jitter=float(self.mix["jitter"]),
+                             b=self.b)
+        raw0 = ref_fit.initial_raw(self.rec, self.tree)
         loss_gap = float(np.max(np.abs(losses[:m] - ref["losses"])
                                 / np.abs(ref["losses"])))
         grad0 = steps[0][1] / (1 - BETA1)
@@ -161,8 +167,8 @@ class Driver:
         return checks, int(bad)
 
     def work_per_call(self) -> arch.Work:
-        return arch.fit_step_work(self.tree, self.shape, self.n, self.b,
-                                  peaks) * self.steps
+        return self.rec.fit_step_work(self.tree, self.shape, self.n,
+                                      self.b, peaks) * self.steps
 
     def units_per_call(self) -> int:
         return self.steps

@@ -16,8 +16,9 @@ the first diagonal tile (the same-example mask), the last diagonal tile
 (ragged where the tile side does not divide n), and a block of
 ``sample_rows`` x ``sample_cols`` entries at rows and columns drawn from
 the seed, with its mirror.  ``gram_rel_err`` is the largest |K - K_ref|
-over those entries against the largest |K_ref|, the reference
-(``reference/nngp.py``, float64) recomputed from the same images;
+over those entries against the largest |K_ref|, the reference (the
+configuration's recursion's ``entries``, float64; ``reference/nngp.py``
+for the diagonal one) recomputed from the same images;
 ``asymmetric_entries`` counts mirrored entries that differ at all.
 """
 
@@ -27,7 +28,6 @@ import numpy as np
 import torch
 
 from .. import arch, peaks, program
-from ..reference import nngp
 
 
 def positions(n: int, b: int, rows: int, cols: int, seed: int) -> dict:
@@ -58,13 +58,15 @@ def take(k, pos: dict) -> dict:
     return out
 
 
-def reference(tree, images: torch.Tensor, pos: dict, dtype=torch.float64,
-              rounding=None) -> dict:
-    """The same entries from the plain reference."""
+def reference(rec, tree, images: torch.Tensor, pos: dict,
+              dtype=torch.float64, rounding=None) -> dict:
+    """The same entries from the plain reference of the recursion
+    ``rec``."""
     def ent(r, c):
-        return nngp.entries(tree, images, torch.as_tensor(r, device=images.device),
-                            torch.as_tensor(c, device=images.device), dtype,
-                            rounding).double().cpu().numpy()
+        return rec.entries(tree, images,
+                           torch.as_tensor(r, device=images.device),
+                           torch.as_tensor(c, device=images.device), dtype,
+                           rounding).double().cpu().numpy()
     block = ent(pos["rows"], pos["cols"])
     return {"first": ent(pos["first"], pos["first"]),
             "last": ent(pos["last"], pos["last"]),
@@ -98,7 +100,7 @@ class Driver:
         self.n, self.b = int(sizes["n"]), int(sizes["batch_size"])
         self.sets = int(mix["image_sets"])
         self.entry = mix["entry"]
-        self.tree = cell["cfg"]["tree"]
+        self.rec, self.tree = cell["cfg"]["recursion"], cell["cfg"]["tree"]
         self.shape = tuple(cell["cfg"]["image_shape"])
         self.limits = sizes["limits"]
         self.pos = positions(self.n, self.b, sizes["sample_rows"],
@@ -108,7 +110,7 @@ class Driver:
     def setup(self) -> None:
         dev = self.group.device
         self.x = images(self.seed, self.sets, self.n, self.shape, dev)
-        self.model = program.build_model(self.tree)
+        self.model = self.rec.build_model(self.tree)
         entries = program.entries()
         if self.entry == "gram_device":
             fn = entries["gram_device"]
@@ -147,7 +149,7 @@ class Driver:
     def check(self, parts):
         """(numbers compared with their limits, failed calls) over every
         rank's kept entries; the reference runs on this rank's device."""
-        refs = {s: reference(self.tree, self.x[s], self.pos)
+        refs = {s: reference(self.rec, self.tree, self.x[s], self.pos)
                 for s in sorted({s for part in parts for _, s, _ in part})}
         errs, asym, failed = [], 0, set()
         for part in parts:
@@ -163,7 +165,8 @@ class Driver:
                 len(failed))
 
     def work_per_call(self) -> arch.Work:
-        return arch.gram_work(self.tree, self.shape, self.n, self.b, peaks)
+        return self.rec.gram_work(self.tree, self.shape, self.n, self.b,
+                                  peaks)
 
     def units_per_call(self) -> int:
         return self.work_per_call().entries

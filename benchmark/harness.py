@@ -5,8 +5,10 @@ Everything that belongs to one cell is found by name:
 ``BENCHMARK.json`` names the cell's configuration and traffic;
 ``workloads/<cell>.json`` holds the cell's sizes and the limits of its
 check; ``traffic/<traffic>.json`` names the driver (``drivers/<driver>.py``)
-and its parameters; ``configs/<config>.json`` the architecture; each
-per-layer metric is read by ``metrics/<metric>.py``.  Adding a cell, a
+and its parameters; ``configs/<config>.json`` the architecture, and
+``recursions/<r>.py`` the covariance recursion it names (its parser,
+counts, model builder and reference); each per-layer metric is read by
+``metrics/<metric>.py``.  Adding a cell, a
 configuration or a metric adds files; no file here changes.
 
 A run of a cell on several cards is one process per card: this process
@@ -56,7 +58,8 @@ def load_cell(name: str, spec: Optional[dict] = None) -> dict:
     """The cell ``name``: its BENCHMARK.json entry, with its sizes and
     limits (``workloads/<name>.json``), its traffic
     (``traffic/<traffic>.json``) and its configuration
-    (``configs/<config>.json``, the model parsed)."""
+    (``configs/<config>.json``, its recursion's module and the model it
+    parsed)."""
     spec = spec or benchmark_spec()
     entry = next((w for w in spec["workloads"] if w["name"] == name), None)
     if entry is None:

@@ -1,7 +1,9 @@
-"""host_f64_share.fit: the share of the traced fit call's steps that the
-host spent in the exact path's float64 algebra (copy and jitter,
-Cholesky, solve, inverse, the cotangent's build and upload), in percent:
-the program's ``fit.host_f64`` spans over its ``fit.step`` spans
+"""host_f64_share.fit: the share of the traced fit call's steps spent in
+the exact path's float64 phase (the Gram's upcast and jitter, Cholesky,
+solve, inverse, the float32 cotangent's build), which runs on the step's
+device (the card, in a cell) and ends in the loss's readback, in
+percent: the program's ``fit.host_f64`` spans (the name kept from when
+the phase ran on the host) over its ``fit.step`` spans
 (``cnn_gp_tpu_torch.utils.timing``, on the host clock), which record
 while the traced call runs under the profiler.  None without a trace, or
 where the program records no ``fit.step`` span."""

@@ -1,7 +1,13 @@
 """What the benchmark takes from the program under test,
 ``cnn_gp_tpu_torch``: its public entries, and its model DSL to build a
-configuration's model.  Nothing else in ``benchmark/`` imports the
-program; ``reference/`` and ``arch.py`` never do."""
+configuration's model (the diagonal recursion's ``build_model``).
+Besides this module only two kinds of file of the harness (its tests
+aside) import the program: a recursion's ``build_model``
+(``recursions/<r>.py``; the diagonal one takes it from here), and the
+two span readers, ``metrics/host_f64_share.fit.py`` and
+``metrics/grad_vjp_share.fit.py``, which read
+``cnn_gp_tpu_torch.utils.timing``.  Each imports it inside a function,
+never on import; ``reference/`` and ``arch.py`` never do."""
 
 from __future__ import annotations
 

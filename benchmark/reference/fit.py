@@ -10,11 +10,14 @@ under K + s jitter I, with s = mean(diag K) held constant,
 and its gradient through dL/dK = 0.5 (C K^-1 - A A^T), contracted with
 the derivative of each block of K by autograd, every block of the upper
 triangle weighted 1 on the diagonal and 2 above it.  Everything here is
-float64 on the images' device: the Gram from ``nngp.block``, the
-Cholesky, the solve and the inverse.
+float64 on the images' device: the Gram from the configuration's
+recursion's ``block`` (``nngp.block`` for the diagonal one), the
+Cholesky, the solve and the inverse.  Each function takes that recursion
+``rec`` (``recursions/<r>.py``, with its fit hooks) and its tree.
 
-The leaves (var_weight and var_bias of every conv) are optimised in log
-space by Adam (lr 0.1, betas 0.9 / 0.999, eps 1e-8), with the overshoot
+The leaves (``rec.leaves``: var_weight and var_bias of every conv) are
+optimised in log space by Adam (lr 0.1, betas 0.9 / 0.999, eps 1e-8),
+with the overshoot
 guard the program documents: a step whose loss is not finite or exceeds
 the best by more than 1e-3 of |best| is dropped, the iterate restarts from
 the best one with a fresh Adam state, and the rate halves (floored at
@@ -29,9 +32,6 @@ from typing import List
 import numpy as np
 import torch
 
-from .. import arch
-from . import nngp
-
 BETAS = (0.9, 0.999)
 EPS = 1e-8
 LEARNING_RATE = 0.1
@@ -44,12 +44,12 @@ def _upper_blocks(n: int, b: int):
     return [(i0, j0) for i0 in range(0, n, b) for j0 in range(i0, n, b)]
 
 
-def value_and_grad(tree, x: torch.Tensor, y: np.ndarray, raw: np.ndarray,
-                   jitter: float = 1e-6, b: int = 128, rounding=None,
-                   dtype=torch.float64):
-    """(loss, d loss / d raw) at leaves exp(raw), raw in walk order
-    (var_weight, var_bias of each conv).  ``rounding``/``dtype`` compute
-    the Gram as the control does."""
+def value_and_grad(rec, tree, x: torch.Tensor, y: np.ndarray,
+                   raw: np.ndarray, jitter: float = 1e-6, b: int = 128,
+                   rounding=None, dtype=torch.float64):
+    """(loss, d loss / d raw) at leaves exp(raw), raw in ``rec.leaves``'
+    order.  ``rounding``/``dtype`` compute the Gram as the control
+    does."""
     dev = x.device
     n, c = len(x), y.shape[1]
     leaves_raw = torch.tensor(raw, dtype=torch.float64, device=dev)
@@ -62,8 +62,8 @@ def value_and_grad(tree, x: torch.Tensor, y: np.ndarray, raw: np.ndarray,
         for i0, j0 in _upper_blocks(n, b):
             r, q = idx[i0:i0 + b], idx[j0:j0 + b]
             mask = r[:, None] == q[None, :]
-            blk = nngp.block(tree, x[r], x[q], mask if i0 == j0 else None,
-                             pairs(lv), dtype, rounding).double()
+            blk = rec.block(tree, x[r], x[q], mask if i0 == j0 else None,
+                            pairs(lv), dtype, rounding).double()
             k[i0:i0 + len(r), j0:j0 + len(q)] = blk
             k[j0:j0 + len(q), i0:i0 + len(r)] = blk.T
     s = float(k.diagonal().mean())
@@ -80,18 +80,16 @@ def value_and_grad(tree, x: torch.Tensor, y: np.ndarray, raw: np.ndarray,
         r, q = idx[i0:i0 + b], idx[j0:j0 + b]
         mask = r[:, None] == q[None, :]
         lv = torch.exp(raw_t).to(dtype)
-        blk = nngp.block(tree, x[r], x[q], mask if i0 == j0 else None,
-                         pairs(lv), dtype, rounding).double()
+        blk = rec.block(tree, x[r], x[q], mask if i0 == j0 else None,
+                        pairs(lv), dtype, rounding).double()
         w = 1.0 if i0 == j0 else 2.0
         (blk * g[i0:i0 + len(r), j0:j0 + len(q)]).sum().mul(w).backward()
     return loss, raw_t.grad.cpu().numpy()
 
 
-def initial_raw(tree) -> np.ndarray:
-    """log of the configuration's leaves, in walk order."""
-    return np.log(np.array([v for cv in arch.convs(tree)
-                            for v in (cv.var_weight, cv.var_bias)],
-                           np.float64))
+def initial_raw(rec, tree) -> np.ndarray:
+    """log of the configuration's leaves, in ``rec.leaves``' order."""
+    return np.log(np.array(rec.leaves(tree), np.float64))
 
 
 class _Adam:
@@ -108,13 +106,14 @@ class _Adam:
         return raw - (self.lr / bc1) * self.m / denom
 
 
-def follow(tree, x, y, steps: int = 3, jitter: float = 1e-6, b: int = 128,
-           rounding=None, dtype=torch.float64, value_and_grad_fn=None):
+def follow(rec, tree, x, y, steps: int = 3, jitter: float = 1e-6,
+           b: int = 128, rounding=None, dtype=torch.float64,
+           value_and_grad_fn=None):
     """The first ``steps`` steps of the loop from the configuration's
     leaves: a dict of the losses, the first gradient (raw space) and the
     raw leaves each step starts from (``starts[k]``, k = 0..steps)."""
     vg = value_and_grad_fn or value_and_grad
-    raw = initial_raw(tree)
+    raw = initial_raw(rec, tree)
     lr = LEARNING_RATE
     opt = _Adam(len(raw), lr)
     best, best_raw = math.inf, raw.copy()
@@ -122,7 +121,7 @@ def follow(tree, x, y, steps: int = 3, jitter: float = 1e-6, b: int = 128,
     grads: List[np.ndarray] = []
     starts = [raw.copy()]
     for _ in range(steps):
-        loss, g = vg(tree, x, y, raw, jitter, b, rounding, dtype)
+        loss, g = vg(rec, tree, x, y, raw, jitter, b, rounding, dtype)
         losses.append(loss)
         grads.append(g)
         if loss < best:

@@ -10,10 +10,7 @@ import torch
 
 from benchmark import control, harness
 
-from conftest import SEED, SMALL, spec_with_x4
-
-GRAM_CELLS = ["convnet_gp.gram_card", "resnet32.gram_card",
-              "convnet_gp.gram_card_x4"]
+from conftest import SEED, cells, small, spec_with_x4
 
 
 def _tile_bodies():
@@ -94,11 +91,26 @@ def loss_altered(drv):
     mock.patch.object(fit_lib, "nmll_value_and_grad_tiled", vg).start()
 
 
-CASES = ([(c, f) for c in GRAM_CELLS
-          for f in (unchanged, half_left_out, altered)]
-         + [("convnet_gp.gram_card_x4", no_exchange)]
-         + [("convnet_gp.fit_exact", f)
-            for f in (adam_unchanged, half_batch, loss_altered)])
+# the faults each driver's cells can have, and those of a cell on
+# several ranks besides
+FAULTS = {"gram": (unchanged, half_left_out, altered),
+          "fit": (adam_unchanged, half_batch, loss_altered)}
+ACROSS_RANKS = {"gram": (no_exchange,)}
+
+
+def _cases():
+    spec = spec_with_x4()
+    out = []
+    for c in cells():
+        cell = harness.load_cell(c, spec)
+        kind = cell["mix"]["driver"]
+        faults = FAULTS[kind] + (ACROSS_RANKS.get(kind, ())
+                                 if int(cell["chips"]) > 1 else ())
+        out += [(c, f) for f in faults]
+    return out
+
+
+CASES = _cases()
 
 
 @pytest.mark.parametrize("cell, fault", CASES,
@@ -107,7 +119,7 @@ def test_a_fault_makes_the_run_incorrect(cell, fault):
     spec = spec_with_x4()
     try:
         run = harness.run_world(cell, SEED, 0.2, False, device="cpu",
-                                overrides=SMALL[cell], faults=fault,
+                                overrides=small(cell), faults=fault,
                                 spec=spec)
     finally:
         mock.patch.stopall()
@@ -116,36 +128,37 @@ def test_a_fault_makes_the_run_incorrect(cell, fault):
     assert line["failed"] >= 1
 
 
-@pytest.mark.parametrize("cell", sorted(SMALL))
+@pytest.mark.parametrize("cell", cells())
 def test_the_sound_run_is_correct(cell):
     spec = spec_with_x4()
     run = harness.run_world(cell, SEED + 1, 0.2, False, device="cpu",
-                            overrides=SMALL[cell], spec=spec)
+                            overrides=small(cell), spec=spec)
     line = harness.result_line(spec, run, False, "cpu")
     assert line["correct"] is True, line["checks"]
 
 
-@pytest.mark.parametrize("cell", GRAM_CELLS)
+@pytest.mark.parametrize("cell", cells("gram"))
 def test_the_control_fails_the_limits(cell):
     """The reference in TF32 in the program's place reads above the cell's
     limit; a Gram entry's error does not grow with the cell's size."""
     limits = harness.load_cell(cell, spec_with_x4())["sizes"]["limits"]
-    numbers = control.readings(cell, SEED, "cpu", SMALL[cell],
+    numbers = control.readings(cell, SEED, "cpu", small(cell),
                                spec_with_x4())["control"]
     assert numbers["gram_rel_err"] > limits["gram_rel_err"], numbers
 
 
-def test_the_fit_control_stands_apart_at_a_small_size():
+@pytest.mark.parametrize("cell", cells("fit"))
+def test_the_fit_control_stands_apart_at_a_small_size(cell):
     """A fit's TF32 errors grow with N (the Gram's conditioning), so at a
     test's size the control reads under the cell's limits, which were set
     at its own size; it still reads far above the sound run there, and
     each planted fault reads above a limit."""
-    cell = "convnet_gp.fit_exact"
-    limits = harness.load_cell(cell)["sizes"]["limits"]
+    spec = spec_with_x4()
+    limits = harness.load_cell(cell, spec)["sizes"]["limits"]
     run = harness.run_world(cell, SEED, 0.2, False, device="cpu",
-                            overrides=SMALL[cell])
+                            overrides=small(cell), spec=spec)
     sound = {k: c["value"] for k, c in run["checks"].items()}
-    got = control.readings(cell, SEED, "cpu", SMALL[cell])
+    got = control.readings(cell, SEED, "cpu", small(cell), spec)
     assert got["control"]["loss_gap"] > 10 * sound["loss_gap"]
     assert got["control"]["grad_gap"] > 10 * sound["grad_gap"]
     for fault in ("half_batch", "altered"):
@@ -153,11 +166,11 @@ def test_the_fit_control_stands_apart_at_a_small_size():
 
 
 @pytest.mark.cuda
-def test_the_fit_control_fails_the_limits_at_the_cells_size():
+@pytest.mark.parametrize("cell", cells("fit"))
+def test_the_fit_control_fails_the_limits_at_the_cells_size(cell):
     """On the card, at the cell's own size: the control fails a limit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    cell = "convnet_gp.fit_exact"
     limits = harness.load_cell(cell)["sizes"]["limits"]
     got = control.readings(cell, SEED, torch.device("cuda"))
     for name, numbers in got.items():
