@@ -21,10 +21,10 @@ imports neither h5py nor tensorstore: the stores load them when one is
 opened.
 """
 
-from .kernel_patch import KernelPatch
-from .kernels import (NNGPKernel, Conv2d, ReLU, Sequential, Sum, Mixture,
-                      resnet_block, kernel_fn, input_patch, apply_kernel,
-                      apply_kernel_reference)
+from .kernel_patch import FullKernelPatch, KernelPatch
+from .kernels import (NNGPKernel, Conv2d, ReLU, AvgPool2d, Sequential, Sum,
+                      Mixture, resnet_block, kernel_fn, input_patch,
+                      apply_kernel, apply_kernel_reference)
 from .finite import FiniteNet, sample_nn_outputs
 from . import settings
 from . import fit as fit_lib
@@ -35,7 +35,8 @@ from .parallel import save_K
 from .utils import print_timings
 
 __all__ = [
-    "KernelPatch", "NNGPKernel", "Conv2d", "ReLU", "Sequential", "Sum",
+    "KernelPatch", "FullKernelPatch", "NNGPKernel", "Conv2d", "ReLU",
+    "AvgPool2d", "Sequential", "Sum",
     "Mixture", "resnet_block", "kernel_fn", "input_patch", "apply_kernel",
     "apply_kernel_reference", "FiniteNet", "sample_nn_outputs", "settings",
     "fit", "fit_lib", "neg_marginal_log_likelihood", "DatasetFromConfig",

@@ -78,6 +78,17 @@ MESH_NEEDS_PROBED = ("mesh= row-shards the probed path's factor; "
                      "grad='exact' factors on one device")
 
 
+def check_no_pool(model) -> None:
+    """Refuse a model with an ``AvgPool2d``: its full-covariance kernels
+    (``ops/fullcov.py``) have no adjoints, so no tiled fit takes it."""
+    from .kernels import AvgPool2d
+    if any(isinstance(m, AvgPool2d) for m in model.modules()):
+        raise NotImplementedError(
+            "a model with an AvgPool2d (the full-covariance recursion) has "
+            "no gradient path: its kernels have no adjoints, so "
+            "nmll_value_and_grad_tiled and fit_large refuse it")
+
+
 def _is_positive(key: str) -> bool:
     return key.rsplit(".", 1)[-1] in _POSITIVE_LEAVES
 
@@ -259,7 +270,9 @@ def nmll_value_and_grad_tiled(model, x, y, jitter: float = 1e-6,
     gradients' copy to the host).  On the card they are host time: a
     child's card work may finish in a later child.  A dict passed as
     ``phases`` receives the three phases' seconds as ``gram``,
-    ``host_f64`` and ``grad_vjp``."""
+    ``host_f64`` and ``grad_vjp``.  Refuses a model with a pool
+    (``check_no_pool``)."""
+    check_no_pool(model)
     device = torch.device(device)
     settings.check_precision_on(device)
     with (timing.recording() if phases is not None
@@ -540,7 +553,9 @@ def fit_large(model, x, y, steps: int = 30,
     are host time); spans record only then or under a profiler.  ``mesh``
     (probed gradients only)
     row-shards :class:`ProbedNMLL`'s factor over a rank group; every rank
-    then takes the same steps."""
+    then takes the same steps.  Refuses a model with a pool
+    (``check_no_pool``)."""
+    check_no_pool(model)
     if grad not in ("exact", "probed"):
         raise ValueError(f"grad must be 'exact' or 'probed', got {grad!r}")
     if mesh is not None and grad != "probed":

@@ -5,6 +5,12 @@ layout (``xy: [Nx, Ny, W, H]``, ``xx: [Nx, W, H]``, ``yy: [Ny, W, H]``;
 diag: ``xy: [N, W, H]``), the optional global-index ``diag_mask [Nx, Ny]``
 that lets one code path serve diagonal and off-diagonal Gram tiles, and
 the ``+``/``*`` algebra that ``Sum`` and ``Mixture`` use.
+
+``FullKernelPatch`` is the full-covariance form that a model with an
+``AvgPool2d`` needs from its input on: the cross covariance of every
+pair of positions, ``xy: [Nx, Ny, W, H, W, H]`` (diag: ``[N, W, H, W,
+H]``), and each image's own full covariance, ``xx: [Nx, W, H, W, H]``,
+``yy: [Ny, W, H, W, H]``, whose diagonals are the ReLU's variances.
 """
 
 from __future__ import annotations
@@ -14,7 +20,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["KernelPatch"]
+__all__ = ["KernelPatch", "FullKernelPatch"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,3 +95,47 @@ class KernelPatch:
 
     def __rmul__(self, other):
         return self.__mul__(other)
+
+
+@dataclasses.dataclass(frozen=True)
+class FullKernelPatch:
+    """One block of the kernel matrix with the covariance of every pair of
+    positions (``ops/fullcov.py``).
+
+    Attributes:
+      xy: cross covariances ``[Nx, Ny, W, H, W, H]`` (``[N, W, H, W, H]``
+        if diag): ``xy[a, b, i, j, k, l]`` between position (i, j) of x_a
+        and (k, l) of y_b.
+      xx: each row image's own covariance ``[Nx, W, H, W, H]``.
+      yy: each column image's own covariance ``[Ny, W, H, W, H]``.
+      same, diag, diag_mask: as ``KernelPatch``'s.
+    """
+
+    xy: torch.Tensor
+    xx: torch.Tensor
+    yy: torch.Tensor
+    same: bool = False
+    diag: bool = False
+    diag_mask: Optional[torch.Tensor] = None
+
+    @property
+    def nx(self) -> int:
+        return self.xx.shape[0]
+
+    @property
+    def ny(self) -> int:
+        return self.yy.shape[0]
+
+    @property
+    def spatial(self):
+        return tuple(self.xy.shape[-2:])
+
+    @staticmethod
+    def variances(cov: torch.Tensor) -> torch.Tensor:
+        """``cov(p, p)`` of own covariances ``[N, W, H, W, H]``, as
+        ``[N, W, H]``: the ReLU's variances."""
+        n, w, h = cov.shape[:3]
+        return cov.reshape(n, w * h, w * h).diagonal(
+            dim1=1, dim2=2).reshape(n, w, h)
+
+    resolve_diag_mask = KernelPatch.resolve_diag_mask

@@ -33,6 +33,16 @@ diagonal walk (``diag=True``) runs each layer on its own
 the plain versions.  ``apply_kernel_reference`` walks the model unfused
 with the plain torch versions, on any device: the yardstick of the
 kernels, which the main path never calls.
+
+A model that holds an ``AvgPool2d`` (Myrtle-10: ``[Conv2d(3), ReLU()] x
+3`` and a pool per stage) needs the covariance of every pair of
+positions from its input on (``FullKernelPatch``): ``apply_kernel``
+runs it through ``ops/fullcov.py`` (one pre-pass per image set, then
+the pairs in memory-bounded chunks, on the card its CUDA kernels), and
+``apply_kernel_reference`` propagates a ``FullKernelPatch`` layer by
+layer in plain torch.  Such a model takes ``Sequential``, ``Conv2d`` of
+stride 1, ``ReLU`` and ``AvgPool2d`` only; an ``AvgPool2d`` on a
+diagonal patch raises.
 """
 
 from __future__ import annotations
@@ -45,23 +55,32 @@ import torch
 from torch import nn
 
 from . import settings
-from .kernel_patch import KernelPatch
-from .ops import arccos, boxfilter, layer
+from .kernel_patch import FullKernelPatch, KernelPatch
+from .ops import arccos, boxfilter, fullcov, layer
 from .ops.layer import _add
 
-__all__ = ["NNGPKernel", "Conv2d", "ReLU", "Sequential", "Sum", "Mixture",
-           "resnet_block", "kernel_fn", "input_patch", "apply_kernel",
-           "apply_kernel_reference"]
+__all__ = ["NNGPKernel", "Conv2d", "ReLU", "AvgPool2d", "Sequential", "Sum",
+           "Mixture", "resnet_block", "kernel_fn", "input_patch",
+           "apply_kernel", "apply_kernel_reference"]
 
 
 def input_patch(x: torch.Tensor, y: torch.Tensor, same: bool, diag: bool,
-                diag_mask: Optional[torch.Tensor] = None) -> KernelPatch:
+                diag_mask: Optional[torch.Tensor] = None,
+                full: bool = False):
     """Channel-mean second moments of the inputs.
 
     ``xy[i, j] = mean_c(x[i, c] * y[j, c])`` is a float32 contraction over
     the channel axis per pixel (full float32 only with TF32 off, see
-    ``settings.moment_precision``)."""
+    ``settings.moment_precision``).  ``full=True`` gives the
+    ``FullKernelPatch``: ``xy[i, j, p, q] = mean_c(x[i, c, p] * y[j, c,
+    q])`` over every pair of positions, and each image's own."""
     c = x.shape[1]
+    if full:
+        xx = torch.einsum("icwh,ickl->iwhkl", x, x) / c
+        yy = xx if y is x else torch.einsum("icwh,ickl->iwhkl", y, y) / c
+        xy = torch.einsum("icwh," + ("ickl->iwhkl" if diag
+                                     else "jckl->ijwhkl"), x, y) / c
+        return FullKernelPatch(xy, xx, yy, same, diag, diag_mask)
     if diag:
         xy = torch.mean(x * y, dim=1)
     else:
@@ -71,7 +90,7 @@ def input_patch(x: torch.Tensor, y: torch.Tensor, same: bool, diag: bool,
     return KernelPatch(xy, xx, yy, same, diag, diag_mask)
 
 
-def _finalize(kp: KernelPatch, n1: int, n2: int, diag: bool):
+def _finalize(kp, n1: int, n2: int, diag: bool):
     w, h = kp.spatial
     if (w, h) != (1, 1):
         raise ValueError(
@@ -86,9 +105,13 @@ def apply_kernel(model, x: torch.Tensor, y: torch.Tensor, same: bool,
                  diag: bool, diag_mask: Optional[torch.Tensor] = None
                  ) -> torch.Tensor:
     """Kernel core on tensors that already lie on the compute device (on
-    the card: the layer kernels)."""
+    the card: the layer kernels; for a model with a pool, the
+    full-covariance kernels)."""
     if x.is_cuda:
         settings.check_precision()
+    spec = fullcov.match(model)
+    if spec is not None:
+        return fullcov.apply(spec, x, y, same, diag, diag_mask)
     kp = input_patch(x, y, same, diag, diag_mask)
     if diag:
         kp = model.propagate(kp)
@@ -107,7 +130,8 @@ def apply_kernel_reference(model, x: torch.Tensor, y: torch.Tensor,
     card."""
     if x.is_cuda:
         settings.check_precision()
-    kp = input_patch(x, y, same, diag, diag_mask)
+    kp = input_patch(x, y, same, diag, diag_mask,
+                     full=fullcov.match(model) is not None)
     kp = model.propagate(kp, reference=True)
     return _finalize(kp, x.shape[0], y.shape[0], diag)
 
@@ -246,6 +270,13 @@ class Conv2d(NNGPKernel):
     def propagate(self, kp: KernelPatch,
                   reference: bool = False) -> KernelPatch:
         k = self.kernel_size
+        if isinstance(kp, FullKernelPatch):
+            if self.stride != 1 or self.dilation != 1:
+                raise ValueError("a full-covariance patch takes Conv2d of "
+                                 "stride 1 and dilation 1")
+            return fullcov.patch_conv(kp, k, *self.pad_lo_hi,
+                                      fullcov._value(self.var_weight),
+                                      fullcov._value(self.var_bias))
         scale = self.var_weight / (k * k)
         conv = (boxfilter.conv_maps_reference if reference
                 else boxfilter.conv_maps)
@@ -274,6 +305,8 @@ class ReLU(NNGPKernel):
 
     def propagate(self, kp: KernelPatch,
                   reference: bool = False) -> KernelPatch:
+        if isinstance(kp, FullKernelPatch):
+            return fullcov.patch_relu(kp)
         if reference:
             return arccos.relu_transform_reference(kp)
         return arccos.relu_transform(kp)
@@ -283,6 +316,33 @@ class ReLU(NNGPKernel):
         if defer and skip is None:
             return kp, True
         return _add(skip, arccos.relu_transform(kp)), False
+
+    def layers(self):
+        return 0
+
+
+class AvgPool2d(NNGPKernel):
+    """Average pooling over k x k blocks (stride k, no padding), as a
+    CNN's ``nn.AvgPool2d(k)``: ``K'(P, Q) = mean over the k^4 pairs of
+    positions (kP + a, kQ + b)``.  It mixes positions, so it acts on the
+    full-covariance patch only; a model that holds one takes that patch
+    from its input on (``apply_kernel``)."""
+
+    def __init__(self, kernel_size=2, stride=None, padding=0):
+        super().__init__()
+        self.kernel_size = int(kernel_size)
+        if (stride is not None and int(stride) != self.kernel_size) \
+                or padding != 0:
+            raise ValueError("AvgPool2d takes stride = kernel_size and no "
+                             "padding")
+
+    def propagate(self, kp, reference: bool = False):
+        if not isinstance(kp, FullKernelPatch):
+            raise ValueError(
+                "AvgPool2d mixes positions and needs the full covariance "
+                "(FullKernelPatch); kernel_fn and apply_kernel route a "
+                "model with a pool through ops/fullcov.py")
+        return fullcov.patch_pool(kp, self.kernel_size)
 
     def layers(self):
         return 0

@@ -1,0 +1,568 @@
+"""Full-covariance NNGP recursion: the kernel of a CNN with average pooling.
+
+A pool mixes positions, so a model that holds an ``AvgPool2d`` keeps the
+covariance of every pair of positions, ``K(p, q)`` over a pair of
+images, from its input on (the diagonal recursion keeps ``K(p, p)``
+alone).  A pair's field is laid out [W, H, W, H] (p = (i, j), q = (k,
+l)); with C channels
+
+    input:  K0(p, q) = mean_c x_c(p) y_c(q)
+    conv:   K'(p, q) = (var_weight / k^2) sum_d K(p + d - lo, q + d - lo)
+                       + var_bias,  d in [0, k)^2, a term off the map 0
+    ReLU:   K'(p, q) = arccos map of K(p, q) with the variances
+                       Kxx(p, p) and Kyy(q, q), the diagonals of each
+                       image's own full covariance
+    pool:   K'(P, Q) = (1 / k^4) sum_{a, b in [0, k)^2} K(kP + a, kQ + b)
+
+Under conv and ReLU each plane of fixed offset q - p evolves on its own;
+only a pool mixes planes.  Nothing is truncated: every offset is kept.
+
+The model (a ``Sequential`` of ``Conv2d``, ``ReLU`` and ``AvgPool2d``,
+``match``) becomes a plan of ops (``plan``), each a conv or a pool whose
+input passes through a prologue first: the channel moments of the images
+(the first op), the arccos ReLU (a ReLU runs in the prologue of the op
+that reads it), or nothing.  A ReLU that no conv or pool reads runs in
+the prologue of an identity pool (k = 1).
+
+A Gram-level call runs the plan twice:
+
+* the pre-pass (``self_maps``), once per image set: each image against
+  itself, its own full covariance, recording the diagonal before each
+  ReLU (the variance maps the pairs read) and the readout k(x, x);
+* the pair tile (``pair_tile``): every pair of a tile's rows and
+  columns, the variances read from both sets' maps, in chunks of rows
+  that keep a chunk's fields under ``CHUNK_BYTES``; entries whose row and
+  column are the same image take the pre-pass readout.
+
+Each op runs its plain torch version on CPU tensors
+(``conv_reference``, ``pool_reference``, ``prologue_reference``) and one
+hand-written CUDA kernel on CUDA tensors (``csrc/fullcov.cu``): the
+shifted box sum with the prologue (``cov_conv_kernel``: one block per
+pair and offset diagonal, walking its slabs with the box's rows in
+shared memory, each input read and its prologue computed once) and the
+block pool with the prologue (``cov_pool_kernel``).  On CUDA tensors a
+model with a conv the kernel does not take (an even or wider than 7
+kernel, padding other than k // 2, maps past 32 along H) raises
+``NotImplementedError`` before any launch; its plain version runs on
+CPU tensors only.  ``conv_launches`` and ``pool_launches`` count the
+launches.
+
+The ReLU (``relu_xy``, on both routes) is the arccos map of
+``ops/arccos.py`` in its "fast" form, each variance map's factors
+``rsqrt(v + tiny)`` and ``sqrt(v + tiny)`` computed once per image
+(``factors``, kept by the pre-pass) and read by every pair, with the
+sine taken from the clamped cosine as ``sqrt((1 - c)(1 + c))``, not as
+``sqrt(xx yy - xy^2)``: near c = 1, where a pooling network's
+covariances sit, the latter's rounding is not the cosine's, the two
+terms of the map stop cancelling, and a Myrtle-10 Gram drifted 3.3e-5
+of its scale from the float64 reference (1.3e-7 with this form);
+``settings.acos_impl`` picks the arccos.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+import types
+from typing import List, NamedTuple, Optional, Tuple
+
+import torch
+
+from . import cuda_lib
+from .arccos import F32_TINY, _sqrt_rn, acos_f32
+
+__all__ = ["FullSpec", "Op", "match", "plan", "SelfMaps", "self_maps",
+           "pair_tile", "diag_pairs", "apply", "conv_reference",
+           "pool_reference", "prologue_reference", "relu_xy", "factors",
+           "patch_conv", "patch_pool", "patch_relu", "CHUNK_BYTES", "build",
+           "conv_launches", "pool_launches"]
+
+conv_launches = 0   # cov_conv_kernel launches
+pool_launches = 0   # cov_pool_kernel launches
+_lib = None
+
+# the most bytes of one chunk's input and output fields (a 64 x 64 tile
+# of 32 x 32 maps holds 16 GiB a field: four chunks)
+CHUNK_BYTES = 8 << 30
+MAX_CONV_K = 7      # the widest conv the kernel takes
+MAX_CONV_H = 32     # and the largest map side along H
+NONE, RELU, MOMENTS = 0, 1, 2      # prologues (csrc/fullcov.cu)
+
+
+class FullSpec(NamedTuple):
+    """The model's layers as ("conv", k, lo, hi, var_weight, var_bias),
+    ("relu",) and ("pool", k), in order; a snapshot of learnable leaves."""
+    layers: Tuple[tuple, ...]
+
+
+class Op(NamedTuple):
+    """One launch of the plan, on [W, H] maps to [Wo, Ho]."""
+    kind: str          # "conv" or "pool"
+    k: int
+    lo: int            # conv padding before each dim (pool: 0)
+    scale: float
+    bias: float
+    prologue: int      # NONE, RELU or MOMENTS
+    relu: int          # which factor maps a RELU prologue reads (-1)
+    w: int
+    h: int
+    wo: int
+    ho: int
+
+
+def _value(v) -> float:
+    return float(v.detach() if isinstance(v, torch.Tensor) else v)
+
+
+def _flat(model) -> list:
+    from ..kernels import AvgPool2d, Conv2d, ReLU, Sequential
+    if isinstance(model, Sequential):
+        return [m for mod in model.mods for m in _flat(mod)]
+    if isinstance(model, (Conv2d, ReLU, AvgPool2d)):
+        return [model]
+    raise ValueError(
+        f"the full-covariance path takes a Sequential of Conv2d, ReLU and "
+        f"AvgPool2d; {type(model).__name__} is not one of them")
+
+
+def _has_pool(model) -> bool:
+    from ..kernels import AvgPool2d
+    return any(isinstance(m, AvgPool2d) for m in model.modules())
+
+
+def match(model) -> Optional[FullSpec]:
+    """The model's FullSpec if it holds an ``AvgPool2d`` (and so needs the
+    full covariance), else None.  Raises on a pooled model this path does
+    not take (a ``Sum``, a ``Mixture``, a strided or dilated conv)."""
+    from ..kernels import AvgPool2d, Conv2d
+    if not _has_pool(model):
+        return None
+    layers = []
+    for m in _flat(model):
+        if isinstance(m, Conv2d):
+            if m.stride != 1 or m.dilation != 1:
+                raise ValueError("the full-covariance path takes Conv2d of "
+                                 "stride 1 and dilation 1")
+            lo, hi = m.pad_lo_hi
+            layers.append(("conv", m.kernel_size, lo, hi,
+                           _value(m.var_weight), _value(m.var_bias)))
+        elif isinstance(m, AvgPool2d):
+            layers.append(("pool", m.kernel_size))
+        else:
+            layers.append(("relu",))
+    return FullSpec(tuple(layers))
+
+
+def _f32(v: float) -> float:
+    return float(torch.tensor(v, dtype=torch.float32))
+
+
+def plan(spec: FullSpec, w: int, h: int) -> List[Op]:
+    """The launches that take [w, h] maps through the model, each ReLU
+    fused into the prologue of the op that reads it; raises unless the
+    last map is 1 x 1."""
+    ops: List[Op] = []
+    pending, relus = MOMENTS, 0
+
+    def emit(kind, k, lo, scale, bias, wo, ho):
+        nonlocal pending, relus, w, h
+        relu = relus - 1 if pending == RELU else -1
+        ops.append(Op(kind, k, lo, scale, bias, pending, relu, w, h, wo, ho))
+        pending, w, h = NONE, wo, ho
+
+    for layer in spec.layers:
+        if layer[0] == "relu":
+            if pending != NONE:      # a ReLU of a ReLU or of the moments
+                emit("pool", 1, 0, 1.0, 0.0, w, h)
+            pending, relus = RELU, relus + 1
+        elif layer[0] == "conv":
+            _, k, lo, hi, vw, vb = layer
+            wo, ho = w + lo + hi - k + 1, h + lo + hi - k + 1
+            if wo < 1 or ho < 1:
+                raise ValueError(f"a {k}x{k} conv leaves no map of {w}x{h}")
+            emit("conv", k, lo, _f32(vw) / (k * k), _f32(vb), wo, ho)
+        else:
+            k = layer[1]
+            if w < k or h < k:
+                raise ValueError(f"a {k}x{k} pool leaves no map of {w}x{h}")
+            emit("pool", k, 0, 1.0 / k ** 4, 0.0, w // k, h // k)
+    if pending != NONE:
+        emit("pool", 1, 0, 1.0, 0.0, w, h)
+    if (w, h) != (1, 1):
+        raise ValueError(
+            f"model must reduce spatial dims to 1x1 before readout, got "
+            f"{(w, h)}; pool or add a valid-padding Conv2d over the map")
+    return ops
+
+
+# -- plain versions -------------------------------------------------------
+
+def _acos():
+    from .. import settings
+    return acos_f32 if settings.acos_impl == "poly" else torch.acos
+
+
+def factors(v: torch.Tensor) -> torch.Tensor:
+    """The ReLU's factors of variances ``v`` [..., W, H]: ``(rsqrt(v +
+    tiny), sqrt(v + tiny))`` stacked as [..., W, H, 2]."""
+    a = v + F32_TINY
+    return torch.stack((torch.rsqrt(a), torch.sqrt(a)), dim=-1)
+
+
+def relu_xy(xy: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor
+            ) -> torch.Tensor:
+    """The arccos map of covariances ``xy`` with its two sides' factors
+    ``fx``, ``fy`` (``factors``, broadcast against ``xy`` with the pair
+    (rsqrt, sqrt) last): ``(s + (pi - acos(c)) xy) / (2 pi)``, ``c =
+    clamp(xy (rx ry))``, ``s = (sx sy) sqrt((1 - c)(1 + c))``
+    (``csrc/fullcov.cu``'s ``relu_full``, op for op)."""
+    c = torch.clamp(xy * (fx[..., 0] * fy[..., 0]), -1.0, 1.0)
+    s = (fx[..., 1] * fy[..., 1]) * _sqrt_rn((1.0 - c) * (1.0 + c))
+    return (s + (math.pi - _acos()(c)) * xy) * (0.5 / math.pi)
+
+
+def _zipped(v: torch.Tensor, zip_: bool, side: int):
+    """Side factors ``v`` [rows, W, H, 2] broadcast over fields [A, B, W,
+    H, W, H] (the pair last): side 0 (p) by A, side 1 (q) by A when
+    zipped, else by B."""
+    if side == 0:
+        return v[:, None, :, :, None, None]
+    return v[:, None, None, None] if zip_ else v[None, :, None, None]
+
+
+def prologue_reference(op: Op, src, x, y, vx, vy, zip_: bool
+                       ) -> torch.Tensor:
+    """The op's input [A, B, W, H, W, H] after its prologue: the channel
+    moments of x [A, C, W, H] and y [B, C, W, H] (zipped: row a against
+    y[a], B = 1), the arccos ReLU of ``src`` with the factors vx [A, W,
+    H, 2] and vy [B (zipped: A), W, H, 2], or ``src`` as it is."""
+    if op.prologue == MOMENTS:
+        c = x.shape[1]
+        if zip_:
+            m = torch.einsum("acwh,ackl->awhkl", x, y)[:, None]
+        else:
+            m = torch.einsum("acwh,bckl->abwhkl", x, y)
+        return m / c
+    if op.prologue == RELU:
+        return relu_xy(src, _zipped(vx, zip_, 0), _zipped(vy, zip_, 1))
+    return src
+
+
+def conv_reference(r: torch.Tensor, k: int, lo: int, wo: int, ho: int,
+                   scale: float, bias: float) -> torch.Tensor:
+    """The shifted box sum of fields r [..., W, H, W, H] to [..., Wo, Ho,
+    Wo, Ho], zero off the map: the taps along (j, l) summed first, then
+    along (i, k), each in order, then scale and bias (the kernel's
+    order)."""
+    w, h = r.shape[-4], r.shape[-3]
+    hi_w, hi_h = wo + k - 1 - lo - w, ho + k - 1 - lo - h
+    pad = torch.nn.functional.pad
+    rp = pad(r, (lo, hi_h, 0, 0, lo, hi_h)) if (lo or hi_h) else r
+    t = None
+    for b in range(k):
+        s = rp[..., :, b:b + ho, :, b:b + ho]
+        t = s if t is None else t + s
+    tp = pad(t, (0, 0, lo, hi_w, 0, 0, lo, hi_w)) if (lo or hi_w) else t
+    out = None
+    for a in range(k):
+        s = tp[..., a:a + wo, :, a:a + wo, :]
+        out = s if out is None else out + s
+    return out * scale + bias
+
+
+def pool_reference(r: torch.Tensor, k: int, wo: int, ho: int,
+                   scale: float) -> torch.Tensor:
+    """The k x k block pool of fields r [..., W, H, W, H] (rows and
+    columns past k Wo, k Ho dropped), its k^4 terms added in order, then
+    scaled."""
+    out = None
+    for a in range(k):
+        for b in range(k):
+            for c in range(k):
+                for d in range(k):
+                    s = r[..., a:k * wo:k, b:k * ho:k, c:k * wo:k,
+                          d:k * ho:k]
+                    out = s if out is None else out + s
+    return out * scale if k > 1 else out.clone()
+
+
+def _op_reference(op: Op, src, x, y, vx, vy, zip_: bool) -> torch.Tensor:
+    r = prologue_reference(op, src, x, y, vx, vy, zip_)
+    if op.kind == "conv":
+        return conv_reference(r, op.k, op.lo, op.wo, op.ho, op.scale,
+                              op.bias)
+    return pool_reference(r, op.k, op.wo, op.ho, op.scale)
+
+
+# -- the CUDA route -------------------------------------------------------
+
+def build() -> float:
+    """Build and load the kernel libraries (``cuda_lib.build``) and bind
+    this module's entry points.  Returns the seconds spent."""
+    global _lib
+    if _lib is not None:
+        return 0.0
+    seconds = cuda_lib.build()
+    lib = cuda_lib.library("fullcov")
+    args = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+            + [ctypes.c_float] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    for fn in (lib.cnn_gp_cov_conv, lib.cnn_gp_cov_pool):
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    lib.cnn_gp_cov_error_string.argtypes = [ctypes.c_int]
+    lib.cnn_gp_cov_error_string.restype = ctypes.c_char_p
+    _lib = types.SimpleNamespace(
+        conv=lib.cnn_gp_cov_conv, pool=lib.cnn_gp_cov_pool,
+        error_string=lambda code: lib.cnn_gp_cov_error_string(
+            code).decode())
+    return seconds
+
+
+def _kernel_takes(op: Op) -> bool:
+    if op.kind == "pool":
+        return True
+    return op.k % 2 == 1 and op.k <= MAX_CONV_K and op.lo == op.k // 2 \
+        and (op.wo, op.ho) == (op.w, op.h) and op.h <= MAX_CONV_H
+
+
+def _launch(op: Op, src, x, y, vx, vy, zip_: bool, a: int, b: int
+            ) -> torch.Tensor:
+    """One launch of the op's kernel on ``a`` x ``b`` pairs (zipped: ``a``
+    pairs, b = 1); returns the [a, b, Wo, Ho, Wo, Ho] fields."""
+    global conv_launches, pool_launches
+    from .. import settings
+    dev = x.device
+    out = torch.empty((a, b, op.wo, op.ho, op.wo, op.ho),
+                      dtype=torch.float32, device=dev)
+    src, x, y, vx, vy = (None if t is None else t.contiguous()
+                         for t in (src, x, y, vx, vy))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    fn = _lib.conv if op.kind == "conv" else _lib.pool
+    err = fn(ptr(src), ptr(x), ptr(y), out.data_ptr(), ptr(vx), ptr(vy),
+             a * b, 1 if zip_ else b, int(zip_), x.shape[1], op.w, op.h,
+             op.k, op.lo, op.wo, op.ho, op.scale, op.bias, op.prologue,
+             int(settings.acos_impl != "poly"), dev.index,
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{op.kind} kernel launch failed: cuda error "
+                           f"{err} ({_lib.error_string(err)})")
+    if op.kind == "conv":
+        conv_launches += 1
+    else:
+        pool_launches += 1
+    return out
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    """Whether ``x``'s ops take the CUDA route (the tests force that route
+    on CPU tensors by patching this)."""
+    return x.is_cuda
+
+
+def _check_card(ops: List[Op]) -> None:
+    """Raise ``NotImplementedError`` naming the first op of ``ops`` that
+    the kernels do not take."""
+    for op in ops:
+        if not _kernel_takes(op):
+            raise NotImplementedError(
+                f"the full-covariance conv kernel takes an odd k <= "
+                f"{MAX_CONV_K}, padding k // 2 and maps up to {MAX_CONV_H} "
+                f"along H; this model's {op.k}x{op.k} conv with padding "
+                f"{op.lo} on {op.w}x{op.h} maps is not one (its plain "
+                f"version runs on CPU tensors)")
+
+
+def _run_op(op: Op, src, x, y, vx, vy, zip_: bool) -> torch.Tensor:
+    """One op on fields [A, B, ...]: the kernel on CUDA tensors (the plan
+    was checked by ``_shape_ops``), else the plain version."""
+    if _on_card(x):
+        build()
+        return _launch(op, src, x, y, vx, vy, zip_, x.shape[0],
+                       1 if zip_ else y.shape[0])
+    return _op_reference(op, src, x, y, vx, vy, zip_)
+
+
+def _diagonal(f: torch.Tensor) -> torch.Tensor:
+    """K(p, p) of zipped fields [A, 1, W, H, W, H], as [A, W, H]."""
+    a, _, w, h = f.shape[:4]
+    return f.reshape(a, w * h, w * h).diagonal(dim1=1, dim2=2).reshape(
+        a, w, h).contiguous()
+
+
+def _walk(ops: List[Op], x, y, zip_: bool, mx, my, record=None):
+    """The plan on x's rows against y's (zipped or every pair): the
+    readout [A, B] (zipped [A]).  ``mx`` / ``my`` are the factor maps
+    per ReLU; None (the pre-pass, y is x, zipped) takes them from each
+    field's own diagonal and appends them to ``record``."""
+    f = None
+    for op in ops:
+        vx = vy = None
+        if op.prologue == RELU:
+            if mx is None:
+                vx = vy = factors(_diagonal(f))
+                record.append(vx)
+            else:
+                vx, vy = mx[op.relu], my[op.relu]
+        f = _run_op(op, f, x, y, vx, vy, zip_)
+    return f.reshape(f.shape[0]) if zip_ else f.reshape(f.shape[:2])
+
+
+def _chunk_rows(ops: List[Op], cols: int, budget: int) -> int:
+    """Rows of a chunk: its largest input and output fields together
+    under ``budget`` bytes."""
+    per_pair = max(4 * ((op.w * op.h) ** 2 + (op.wo * op.ho) ** 2)
+                   for op in ops)
+    return max(1, budget // (per_pair * max(cols, 1)))
+
+
+class SelfMaps(NamedTuple):
+    """An image set's pre-pass: the ReLU's factors [N, W, H, 2] of the
+    variance maps before each ReLU (in plan order) and the readout k(x,
+    x) [N]."""
+    factors: List[torch.Tensor]
+    readout: torch.Tensor
+
+    def rows(self, i0: int, n: int) -> "SelfMaps":
+        return SelfMaps([v[i0:i0 + n] for v in self.factors],
+                        self.readout[i0:i0 + n])
+
+    def nbytes(self) -> int:
+        return 4 * (sum(v.numel() for v in self.factors)
+                    + self.readout.numel())
+
+
+def _shape_ops(spec: FullSpec, x: torch.Tensor) -> List[Op]:
+    """The plan at x's map size; on the card, checked against what the
+    kernels take."""
+    if x.ndim != 4:
+        raise ValueError("inputs must be [N, C, W, H]")
+    ops = plan(spec, x.shape[2], x.shape[3])
+    if _on_card(x):
+        _check_card(ops)
+    return ops
+
+
+def self_maps(spec: FullSpec, x: torch.Tensor,
+              budget: Optional[int] = None) -> SelfMaps:
+    """The pre-pass of the image set x: each image's own full covariance
+    through the model, in chunks of images."""
+    ops = _shape_ops(spec, x)
+    step = _chunk_rows(ops, 1, budget or CHUNK_BYTES)
+    parts, outs = [], []
+    for i0 in range(0, len(x), step):
+        xs = x[i0:i0 + step]
+        record: List[torch.Tensor] = []
+        outs.append(_walk(ops, xs, xs, True, None, None, record))
+        parts.append(record)
+    if not parts:
+        return SelfMaps([], x.new_empty((0,)))
+    return SelfMaps([torch.cat(v) for v in zip(*parts)], torch.cat(outs))
+
+
+def pair_tile(spec: FullSpec, x: torch.Tensor, z: torch.Tensor,
+              mx: SelfMaps, mz: SelfMaps,
+              mask: Optional[torch.Tensor] = None,
+              budget: Optional[int] = None) -> torch.Tensor:
+    """The [len(x), len(z)] tile: every pair through the plan in chunks
+    of rows (``budget`` bytes of fields, ``CHUNK_BYTES`` by default),
+    with ``mx`` / ``mz`` the rows' and columns' pre-pass maps; where
+    ``mask`` marks the same image the entry is the pre-pass readout."""
+    ops = _shape_ops(spec, x)
+    step = _chunk_rows(ops, len(z), budget or CHUNK_BYTES)
+    out = torch.empty((len(x), len(z)), dtype=torch.float32,
+                      device=x.device)
+    for i0 in range(0, len(x), step):
+        rows = mx.rows(i0, step)
+        out[i0:i0 + step] = _walk(ops, x[i0:i0 + step], z, False,
+                                  rows.factors, mz.factors)
+    if mask is not None:
+        out = torch.where(mask, mx.readout[:, None].expand_as(out), out)
+    return out
+
+
+def diag_pairs(spec: FullSpec, x: torch.Tensor, z: torch.Tensor,
+               mx: SelfMaps, mz: SelfMaps,
+               budget: Optional[int] = None) -> torch.Tensor:
+    """k(x_i, z_i) [N]: the i-th images of two sets paired, in chunks."""
+    ops = _shape_ops(spec, x)
+    step = _chunk_rows(ops, 1, budget or CHUNK_BYTES)
+    out = torch.empty((len(x),), dtype=torch.float32, device=x.device)
+    for i0 in range(0, len(x), step):
+        out[i0:i0 + step] = _walk(
+            ops, x[i0:i0 + step], z[i0:i0 + step], True,
+            mx.rows(i0, step).factors, mz.rows(i0, step).factors)
+    return out
+
+
+def _same_images(x: torch.Tensor, y: torch.Tensor) -> bool:
+    return x is y or (x.data_ptr() == y.data_ptr() and x.shape == y.shape)
+
+
+def apply(spec: FullSpec, x: torch.Tensor, y: torch.Tensor, same: bool,
+          diag: bool, diag_mask: Optional[torch.Tensor] = None
+          ) -> torch.Tensor:
+    """``kernels.apply_kernel`` for a model that needs the full
+    covariance: one pre-pass per image set, then the pairs."""
+    mx = self_maps(spec, x)
+    my = mx if _same_images(x, y) else self_maps(spec, y)
+    if diag:
+        return mx.readout if same and my is mx else diag_pairs(
+            spec, x, y, mx, my)
+    mask = diag_mask
+    if mask is None and same:
+        mask = torch.eye(len(x), len(y), dtype=torch.bool, device=x.device)
+    return pair_tile(spec, x, y, mx, my, mask)
+
+
+# -- whole patches, layer by layer (the DSL's propagate) ------------------
+
+def _patch_fields(kp, fn):
+    from ..kernel_patch import FullKernelPatch
+    xx = fn(kp.xx)
+    yy = xx if kp.yy is kp.xx else fn(kp.yy)
+    return FullKernelPatch(fn(kp.xy), xx, yy, kp.same, kp.diag,
+                           kp.diag_mask)
+
+
+def patch_conv(kp, k: int, lo: int, hi: int, var_weight: float,
+               var_bias: float):
+    """A ``Conv2d`` of stride 1 and dilation 1 on every field of a
+    ``FullKernelPatch``, in plain torch."""
+    w, h = kp.xx.shape[1:3]
+    wo, ho = w + lo + hi - k + 1, h + lo + hi - k + 1
+    scale, bias = _f32(var_weight) / (k * k), _f32(var_bias)
+    return _patch_fields(kp, lambda f: conv_reference(f, k, lo, wo, ho,
+                                                      scale, bias))
+
+
+def patch_pool(kp, k: int):
+    """An ``AvgPool2d`` of k x k blocks on every field, in plain torch."""
+    w, h = kp.xx.shape[1:3]
+    return _patch_fields(kp, lambda f: pool_reference(f, k, w // k, h // k,
+                                                      1.0 / k ** 4))
+
+
+def patch_relu(kp):
+    """The arccos ReLU on every field, each image's variances the
+    diagonal of its own covariance; where the mask marks the same image
+    the pair's field is the row image's own, as after every layer."""
+    from ..kernel_patch import FullKernelPatch
+    fx = factors(FullKernelPatch.variances(kp.xx))
+    fy = (fx if kp.yy is kp.xx
+          else factors(FullKernelPatch.variances(kp.yy)))
+
+    def own(f, v):
+        return relu_xy(f, v[:, :, :, None, None], v[:, None, None])
+    xx = own(kp.xx, fx)
+    yy = xx if kp.yy is kp.xx else own(kp.yy, fy)
+    if kp.diag:
+        xy = relu_xy(kp.xy, fx[:, :, :, None, None], fy[:, None, None])
+        return FullKernelPatch(xy, xx, yy, kp.same, kp.diag)
+    xy = relu_xy(kp.xy, _zipped(fx, False, 0), _zipped(fy, False, 1))
+    mask = kp.resolve_diag_mask()
+    if mask is not None:
+        xy = torch.where(mask[:, :, None, None, None, None],
+                         xx[:, None].expand_as(xy), xy)
+    return FullKernelPatch(xy, xx, yy, kp.same, kp.diag, kp.diag_mask)

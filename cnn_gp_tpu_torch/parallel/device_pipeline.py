@@ -3,8 +3,10 @@
 PyTorch counterpart of ``cnn_gp_tpu/parallel/device_pipeline.py``.  The
 whole Gram is assembled in one card tensor, tile by tile over the
 scheduler's manifest through ``parallel.gram._tile_body`` (so every tile
-of a ConvNet-GP model goes through the CUDA megakernel, on one pre-pass
-per image set), and the solve runs on that resident tensor:
+of a ConvNet-GP model goes through the CUDA megakernel, and every tile
+of a model with a pool through the full covariance's kernels, each on
+one pre-pass per image set), and the solve runs on that resident
+tensor:
 
     K = gram_device(model, x, device=dev)                      # [N, N]
     acc = classify_device(model, xtr, ytr, (xte, yte), device=dev)
@@ -22,12 +24,12 @@ import numpy as np
 import torch
 
 from .. import settings
-from ..ops import megakernel, solve
+from ..ops import solve
 from ..utils import timing
 from . import scheduler
 from .chol_dist import CardFactor
 from .gram import (_on_device, _tile_body, call_span, compute_gram_diag,
-                   set_maps)
+                   set_maps, tile_spec)
 
 __all__ = ["gram_device", "classify_device"]
 
@@ -52,7 +54,7 @@ def gram_device(model, X, Z=None, *, batch_size: int = 128,
         call.set(tiles=len(offsets))
         x_all = _on_device(X, device)
         z_all = x_all if symmetric else _on_device(Z, device)
-        spec = megakernel.match(model)
+        spec = tile_spec(model)
         maps = set_maps(spec, x_all, z_all)
         k = torch.empty((n1, n2), dtype=torch.float32, device=device)
         for i0, j0 in offsets:

@@ -40,7 +40,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..ops import megakernel
 from ..utils import timing
 from ..utils.timing import print_timings
 from . import gram, scheduler
@@ -177,7 +176,7 @@ def compute_gram_sharded(model, X, Z=None, *, batch_size: int = 200,
         # ONE upload per set, reused by every round
         x_dev = gram._on_device(X, device)
         z_dev = x_dev if symmetric else gram._on_device(Z, device)
-        spec = megakernel.match(model)
+        spec = gram.tile_spec(model)
         # each rank's pre-pass: the maps of the sets it tiles, once per call
         maps = gram.set_maps(spec, x_dev, z_dev)
 
