@@ -37,15 +37,20 @@ A Gram-level call runs the plan twice:
 Each op runs its plain torch version on CPU tensors
 (``conv_reference``, ``pool_reference``, ``prologue_reference``) and one
 hand-written CUDA kernel on CUDA tensors (``csrc/fullcov.cu``): the
-shifted box sum with the prologue (``cov_conv_kernel``: one block per
-pair and offset diagonal, walking its slabs with the box's rows in
-shared memory, each input read and its prologue computed once) and the
-block pool with the prologue (``cov_pool_kernel``).  On CUDA tensors a
-model with a conv the kernel does not take (an even or wider than 7
-kernel, padding other than k // 2, maps past 32 along H) raises
-``NotImplementedError`` before any launch; its plain version runs on
-CPU tensors only.  ``conv_launches`` and ``pool_launches`` count the
-launches.
+shifted box sum with the prologue (``cov_conv_kernel``, each input read
+and its prologue computed once; a 3x3 conv on square maps of a side in
+``WALK_MAPS`` takes the warp walk, one warp segment per pair and pair of
+offset diagonals (the moments of ``WALK_CHANNELS`` channels), its next
+slab prefetched into shared memory, the taps
+by shuffles and the running sums in registers, any other conv the slab
+walk, one block per pair and offset diagonal behind a block barrier a
+slab; both give the same bits) and the block pool with the prologue
+(``cov_pool_kernel``).  On CUDA tensors a model with a conv the kernel
+does not take (an even or wider than 7 kernel, padding other than k //
+2, maps past 32 along H) raises ``NotImplementedError`` before any
+launch; its plain version runs on CPU tensors only.  ``conv_launches``
+and ``pool_launches`` count the launches, ``conv_walk_launches`` the
+convs that took the warp walk.
 
 The ReLU (``relu_xy``, on both routes) is the arccos map of
 ``ops/arccos.py`` in its "fast" form, each variance map's factors
@@ -75,10 +80,12 @@ __all__ = ["FullSpec", "Op", "match", "plan", "SelfMaps", "self_maps",
            "pair_tile", "diag_pairs", "apply", "conv_reference",
            "pool_reference", "prologue_reference", "relu_xy", "factors",
            "patch_conv", "patch_pool", "patch_relu", "CHUNK_BYTES", "build",
-           "conv_launches", "pool_launches"]
+           "conv_launches", "pool_launches", "conv_walk_launches",
+           "WALK_MAPS", "WALK_CHANNELS"]
 
 conv_launches = 0   # cov_conv_kernel launches
 pool_launches = 0   # cov_pool_kernel launches
+conv_walk_launches = 0   # of those, the warp walk's
 _lib = None
 
 # the most bytes of one chunk's input and output fields (a 64 x 64 tile
@@ -87,6 +94,10 @@ CHUNK_BYTES = 8 << 30
 MAX_CONV_K = 7      # the widest conv the kernel takes
 MAX_CONV_H = 32     # and the largest map side along H
 NONE, RELU, MOMENTS = 0, 1, 2      # prologues (csrc/fullcov.cu)
+# map sides whose 3x3 "same" convs on square maps take the warp walk
+# (the kernel has it for 32, 16 and 8), and the moments' channels it takes
+WALK_MAPS = (32, 16, 8)
+WALK_CHANNELS = 3
 
 
 class FullSpec(NamedTuple):
@@ -304,15 +315,21 @@ def build() -> float:
         return 0.0
     seconds = cuda_lib.build()
     lib = cuda_lib.library("fullcov")
-    args = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
-            + [ctypes.c_float] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    for fn in (lib.cnn_gp_cov_conv, lib.cnn_gp_cov_pool):
-        fn.argtypes = args
+    head = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+            + [ctypes.c_float] * 2 + [ctypes.c_int] * 2)
+    # the conv takes the walk before the device
+    for fn, ints in ((lib.cnn_gp_cov_conv, 2), (lib.cnn_gp_cov_pool, 1)):
+        fn.argtypes = head + [ctypes.c_int] * ints + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.cnn_gp_cov_check.argtypes = [ctypes.c_int, ctypes.c_uint,
+                                     ctypes.c_uint, ctypes.c_void_p,
+                                     ctypes.c_int, ctypes.c_void_p]
+    lib.cnn_gp_cov_check.restype = ctypes.c_int
     lib.cnn_gp_cov_error_string.argtypes = [ctypes.c_int]
     lib.cnn_gp_cov_error_string.restype = ctypes.c_char_p
     _lib = types.SimpleNamespace(
         conv=lib.cnn_gp_cov_conv, pool=lib.cnn_gp_cov_pool,
+        check=lib.cnn_gp_cov_check,
         error_string=lambda code: lib.cnn_gp_cov_error_string(
             code).decode())
     return seconds
@@ -325,12 +342,35 @@ def _kernel_takes(op: Op) -> bool:
         and (op.wo, op.ho) == (op.w, op.h) and op.h <= MAX_CONV_H
 
 
-def _launch(op: Op, src, x, y, vx, vy, zip_: bool, a: int, b: int
-            ) -> torch.Tensor:
+def _takes_walk(op: Op, channels: int) -> bool:
+    """Whether the conv ``op`` on images of ``channels`` channels takes
+    ``cov_conv_kernel``'s warp walk: a 3x3 "same" conv on square maps of
+    a side in ``WALK_MAPS``, its moments (if they are its prologue) of
+    ``WALK_CHANNELS``."""
+    return op.kind == "conv" and op.k == 3 and op.lo == 1 \
+        and op.w == op.h and (op.wo, op.ho) == (op.w, op.h) \
+        and op.h in WALK_MAPS \
+        and (op.prologue != MOMENTS or channels == WALK_CHANNELS)
+
+
+def _count(op: Op, walk: bool) -> None:
+    """Count one launch of ``op``'s kernel (``walk``: on the warp walk)."""
+    global conv_launches, pool_launches, conv_walk_launches
+    if op.kind == "conv":
+        conv_launches += 1
+        conv_walk_launches += walk
+    else:
+        pool_launches += 1
+
+
+def _launch(op: Op, src, x, y, vx, vy, zip_: bool, a: int, b: int,
+            walk: Optional[bool] = None) -> torch.Tensor:
     """One launch of the op's kernel on ``a`` x ``b`` pairs (zipped: ``a``
-    pairs, b = 1); returns the [a, b, Wo, Ho, Wo, Ho] fields."""
-    global conv_launches, pool_launches
+    pairs, b = 1); returns the [a, b, Wo, Ho, Wo, Ho] fields.  ``walk``
+    picks a conv's walk (the warp walk where the kernel has it, else the
+    slab walk); None takes ``_takes_walk``'s."""
     from .. import settings
+    walk = _takes_walk(op, x.shape[1]) if walk is None else bool(walk)
     dev = x.device
     out = torch.empty((a, b, op.wo, op.ho, op.wo, op.ho),
                       dtype=torch.float32, device=dev)
@@ -340,19 +380,34 @@ def _launch(op: Op, src, x, y, vx, vy, zip_: bool, a: int, b: int
     def ptr(t):
         return None if t is None else t.data_ptr()
     fn = _lib.conv if op.kind == "conv" else _lib.pool
+    tail = [int(walk)] if op.kind == "conv" else []
     err = fn(ptr(src), ptr(x), ptr(y), out.data_ptr(), ptr(vx), ptr(vy),
              a * b, 1 if zip_ else b, int(zip_), x.shape[1], op.w, op.h,
              op.k, op.lo, op.wo, op.ho, op.scale, op.bias, op.prologue,
-             int(settings.acos_impl != "poly"), dev.index,
+             int(settings.acos_impl != "poly"), *tail, dev.index,
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{op.kind} kernel launch failed: cuda error "
                            f"{err} ({_lib.error_string(err)})")
-    if op.kind == "conv":
-        conv_launches += 1
-    else:
-        pool_launches += 1
+    _count(op, walk and op.kind == "conv")
     return out
+
+
+def _mismatches(which: str, lo: int, hi: int, device) -> int:
+    """How many float32 bit patterns in [lo, hi] the warp walk's rounding
+    without a branch (``csrc/fullcov.cu``: ``"sqrt"``, ``sqrt_unit``;
+    ``"div3"``, ``div3``) rounds otherwise than CUDA's ``__fsqrt_rn(x)``
+    or ``__fdiv_rn(x, 3)``, on the card ``device``."""
+    build()
+    dev = torch.device(device)
+    count = torch.zeros(1, dtype=torch.int64, device=dev)
+    err = _lib.check(("sqrt", "div3").index(which), lo, hi,
+                     count.data_ptr(), dev.index,
+                     torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rounding check failed: cuda error {err} "
+                           f"({_lib.error_string(err)})")
+    return int(count.item())
 
 
 def _on_card(x: torch.Tensor) -> bool:

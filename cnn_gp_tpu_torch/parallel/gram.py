@@ -50,7 +50,8 @@ _COUNTERS = ((megakernel, ("launches", "prepass_launches")),
              (boxfilter, ("launches", "prologue_launches",
                           "epilogue_launches", "vjp_launches")),
              (arccos, ("launches", "vjp_launches")),
-             (fullcov, ("conv_launches", "pool_launches")))
+             (fullcov, ("conv_launches", "pool_launches",
+                        "conv_walk_launches")))
 
 
 def _launch_counts() -> dict:

@@ -337,12 +337,10 @@ class _Counted:
         monkeypatch.setattr(fullcov, "_on_card", lambda x: True)
         monkeypatch.setattr(fullcov, "build", lambda: 0.0)
 
-        def launch(op, src, x, y, vx, vy, zip_, a, b):
+        def launch(op, src, x, y, vx, vy, zip_, a, b, walk=None):
             self.kinds.append(op.kind)
-            if op.kind == "conv":
-                fullcov.conv_launches += 1
-            else:
-                fullcov.pool_launches += 1
+            fullcov._count(op, fullcov._takes_walk(op, x.shape[1])
+                           if walk is None else walk)
             return fullcov._op_reference(op, src, x, y, vx, vy, zip_)
         monkeypatch.setattr(fullcov, "_launch", launch)
 
@@ -365,6 +363,8 @@ def test_launches_per_tile_and_set(monkeypatch):
         op.kind == "conv" for op in plan)
     assert call.attrs["fullcov.pool_launches"] == 4 * sum(
         op.kind == "pool" for op in plan)
+    # 4x4 maps: no conv takes the warp walk
+    assert call.attrs["fullcov.conv_walk_launches"] == 0
     prepass = next(s for s in found if s.name == "gram.prepass")
     assert prepass.attrs["sets"] == 1 and prepass.attrs["images"] == 5
     assert prepass.attrs["maps"] == "4x4/4x4/2x2/2x2"
@@ -378,6 +378,36 @@ def test_launches_per_tile_and_set(monkeypatch):
                        match="2x2 conv with padding 0 on 2x2 maps"):
         kernel_fn(valid, _x(2, 4, 41))
     assert counted.kinds == []
+
+
+def test_myrtle10_convs_take_the_warp_walk(monkeypatch):
+    """On the card (the CUDA route forced on CPU tensors) a Myrtle-10 Gram
+    call counts every 3x3 conv at 32x32, 16x16 and 8x8 on the warp walk
+    (9 of each walk's 10 convs: all but the dense 1x1 readout), and its
+    gram.call span carries the count; a 5x5 conv on 32x32 maps, one on
+    16x32 maps and moments of other than 3 channels take the slab walk."""
+    _Counted(monkeypatch)
+    model = load("cifar10_myrtle10").initial_model
+    x = _x(3, 32, 45)
+    before = (fullcov.conv_launches, fullcov.conv_walk_launches)
+    with timing.recording() as found:
+        gram_device(model, x, batch_size=2, device="cpu")
+    # tiles (0, 0), (0, 2), (2, 2) and the set's pre-pass, one chunk each
+    call = next(s for s in found if s.name == "gram.call")
+    assert call.attrs["fullcov.conv_launches"] == 4 * 10
+    assert call.attrs["fullcov.conv_walk_launches"] == 4 * 9
+    assert (fullcov.conv_launches - before[0],
+            fullcov.conv_walk_launches - before[1]) == (40, 36)
+    op = fullcov.Op("conv", 5, 2, 2.0 / 25, 0.0, fullcov.RELU, 0, 32, 32,
+                    32, 32)
+    assert not fullcov._takes_walk(op, 3)
+    assert fullcov._takes_walk(op._replace(k=3, lo=1), 3)
+    assert not fullcov._takes_walk(op._replace(k=3, lo=1, h=16, ho=16), 3)
+    # the moments of a channel count but 3 take the slab walk
+    moments = op._replace(k=3, lo=1, prologue=fullcov.MOMENTS, relu=-1)
+    assert fullcov._takes_walk(moments, 3)
+    assert not fullcov._takes_walk(moments, 1)
+    assert fullcov._takes_walk(op._replace(k=3, lo=1), 1)
 
 
 # pooled models with a conv the kernel does not take, the map side, and
