@@ -3,12 +3,12 @@
 The same NNGP kernel DSL, Gram assembly, store and GP solve as the JAX
 package, with its module names.  Models of the paper ConvNet-GP family
 compute their Gram tiles with a hand-written CUDA kernel
-(``ops/megakernel.py``, ``csrc/megakernel.cu``); every other model runs
-each ``Conv2d`` and ``ReLU`` on a hand-written CUDA kernel of its own
-(``csrc/boxfilter.cu``, ``csrc/arccos.cu``) and the rest on plain torch
-ops.  ``finite.py`` mirrors each kernel model as S random
-finite-width networks evaluated in one grouped forward.  This package
-never imports jax.
+(``ops/megakernel.py``), a model with a pool with the full covariance's
+(``ops/fullcov.py``); every other model runs each ``Conv2d`` and ``ReLU``
+on one of its own (``csrc/boxfilter.cu``, ``csrc/arccos.cu``) and the
+rest on plain torch ops.  ``finite.py`` mirrors each kernel model as S
+random finite-width networks evaluated in one grouped forward.  This
+package never imports jax.
 
 The top level exports what ``cnn_gp_tpu``'s does (pinned by
 ``tests/test_torch_surface.py``), with the same meaning for ``fit``: the

@@ -14,9 +14,10 @@ Ported: every config of the repo's ``configs/``: ``synthetic``,
 even 4x4 kernel), ``mnist_as_tf`` with its 16k and 4k rehearsal splits
 ``mnist_as_tf_16k`` and ``mnist_as_tf_mini``, ``mnist`` (the default
 ``--config`` of the drivers: ResNet-32 on the 50k/10k/10k split) and
-``cifar10`` (ResNet-32 on 3-channel 32x32 images, tile 350).  Only
-``synthetic`` and ``mnist_paper_convnet_gp`` have models that
-``ops.megakernel.match`` accepts; the ResNets run on the plain path.
+``cifar10`` (ResNet-32 on 32x32 images, tile 350); and ``cifar10_myrtle10``
+(Myrtle-10), the full covariance's (``ops/fullcov.py``).  ``synthetic``
+and ``mnist_paper_convnet_gp`` take the megakernel; the ResNets run on
+the fused layer kernels (``ops/layer.py``).
 """
 
 import importlib

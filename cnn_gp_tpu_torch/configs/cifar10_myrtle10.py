@@ -9,7 +9,7 @@ a 2x2 average pool after the first two and three after the last (8 -> 4
 and b_std = 0 throughout, so ``var_weight = 2`` (this DSL's ``Conv2d``
 scales the box sum by ``var_weight / k^2``) and ``var_bias = 0``.  The
 pools need the covariance of every pair of positions
-(``ops/fullcov.py``): ``megakernel.match`` refuses the model, and the
+(``ops/fullcov.py``): the megakernel refuses the model, and the
 tiled fit refuses it (its kernels have no adjoints)."""
 
 from cnn_gp_tpu_torch import AvgPool2d, Conv2d, ReLU, Sequential

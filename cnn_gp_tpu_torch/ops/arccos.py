@@ -65,10 +65,11 @@ __all__ = ["relu_transform", "relu_transform_reference", "relu_xy_reference",
            "relu_xy_vjp_reference", "relu_factors", "factor_table",
            "factor_table_entries", "factor_table_reference", "acos_f32",
            "F32_TINY", "check_method", "METHODS", "DEFAULT_METHOD", "build",
-           "launches", "vjp_launches", "copies"]
+           "launches", "vjp_launches", "copies", "COUNTERS"]
 
 launches = 0   # ReLU kernel launches
 vjp_launches = 0   # launches of the adjoint kernel
+COUNTERS = ("launches", "vjp_launches")
 copies = 0     # inputs copied to make them contiguous before a launch
 _lib = None
 _scratch_sizes = (None, {})   # (the library, its scratch sizes by shape)

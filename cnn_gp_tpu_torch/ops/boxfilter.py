@@ -54,7 +54,7 @@ __all__ = ["same_padding", "resolve_padding", "out_size", "box_filter_2d",
            "box_filter_2d_vjp_reference",
            "check_method", "METHODS", "DEFAULT_METHOD", "build", "launches",
            "prologue_launches", "epilogue_launches", "vjp_launches",
-           "copies"]
+           "copies", "COUNTERS"]
 
 PadT = Tuple[int, int]
 Operand = Union[None, float, torch.Tensor]
@@ -63,6 +63,8 @@ launches = 0            # box-filter kernel launches, every form
 prologue_launches = 0   # of them, with the ReLU prologue
 epilogue_launches = 0   # of them, with the skip epilogue
 vjp_launches = 0        # launches of the adjoint kernel
+COUNTERS = ("launches", "prologue_launches", "epilogue_launches",
+            "vjp_launches")
 copies = 0     # inputs copied to make them contiguous before a launch
 _lib = None
 _partials_sizes = (None, {})   # (the library, its partials sizes by shape)

@@ -81,11 +81,12 @@ __all__ = ["FullSpec", "Op", "match", "plan", "SelfMaps", "self_maps",
            "pool_reference", "prologue_reference", "relu_xy", "factors",
            "patch_conv", "patch_pool", "patch_relu", "CHUNK_BYTES", "build",
            "conv_launches", "pool_launches", "conv_walk_launches",
-           "WALK_MAPS", "WALK_CHANNELS"]
+           "WALK_MAPS", "WALK_CHANNELS", "COUNTERS"]
 
 conv_launches = 0   # cov_conv_kernel launches
 pool_launches = 0   # cov_pool_kernel launches
 conv_walk_launches = 0   # of those, the warp walk's
+COUNTERS = ("conv_launches", "pool_launches", "conv_walk_launches")
 _lib = None
 
 # the most bytes of one chunk's input and output fields (a 64 x 64 tile
@@ -102,8 +103,24 @@ WALK_CHANNELS = 3
 
 class FullSpec(NamedTuple):
     """The model's layers as ("conv", k, lo, hi, var_weight, var_bias),
-    ("relu",) and ("pool", k), in order; a snapshot of learnable leaves."""
+    ("relu",) and ("pool", k), in order; a snapshot of learnable leaves.
+    Its methods: the route of ``parallel.gram.tile_spec``, on SelfMaps."""
     layers: Tuple[tuple, ...]
+
+    def maps(self, x: torch.Tensor) -> "SelfMaps":
+        return self_maps(self, x)
+
+    def rows(self, m: "SelfMaps", i0: int, n: int) -> "SelfMaps":
+        return m.rows(i0, n)
+
+    def tile(self, x, z, mx, mz, mask=None) -> torch.Tensor:
+        return pair_tile(self, x, z, mx, mz, mask)
+
+    def readout(self, x: torch.Tensor) -> torch.Tensor:
+        return self_maps(self, x).readout
+
+    def sizes(self, m: "SelfMaps") -> str:     # each ReLU's map, WxH/...
+        return "/".join(f"{v.shape[1]}x{v.shape[2]}" for v in m.factors)
 
 
 class Op(NamedTuple):
@@ -483,7 +500,8 @@ class SelfMaps(NamedTuple):
         return SelfMaps([v[i0:i0 + n] for v in self.factors],
                         self.readout[i0:i0 + n])
 
-    def nbytes(self) -> int:
+    @property
+    def nbytes(self) -> int:      # as torch.Tensor.nbytes
         return 4 * (sum(v.numel() for v in self.factors)
                     + self.readout.numel())
 

@@ -45,10 +45,11 @@ from .cuda_lib import ptxas_report  # noqa: F401  (re-exported)
 __all__ = ["MegaSpec", "match", "gram_tile", "gram_tile_reference",
            "pair_tile", "pair_tile_reference", "diag_maps",
            "diag_maps_reference", "diag_readout", "build", "ptxas_report",
-           "launches", "prepass_launches"]
+           "launches", "prepass_launches", "COUNTERS"]
 
 launches = 0          # pair-kernel launches by gram_tile and pair_tile
 prepass_launches = 0  # pre-pass launches by gram_tile and diag_maps
+COUNTERS = ("launches", "prepass_launches")
 _lib = None
 
 
@@ -81,6 +82,22 @@ class MegaSpec(NamedTuple):
         """``(vw / k^2, vb)`` of the readout, rounded as ``layer_scales``."""
         return (_f32(self.readout_vw) / (self.readout_k * self.readout_k),
                 _f32(self.readout_vb))
+
+    # the route of parallel.gram.tile_spec, on [L, N, H, W] maps
+    def maps(self, x: torch.Tensor) -> torch.Tensor:
+        return diag_maps(self, x)
+
+    def rows(self, m: torch.Tensor, i0: int, n: int) -> torch.Tensor:
+        return m[:, i0:i0 + n]
+
+    def tile(self, x, z, mx, mz, mask=None) -> torch.Tensor:
+        return pair_tile(self, x, z, mx, mz, mask)
+
+    def readout(self, x: torch.Tensor) -> torch.Tensor:
+        return diag_readout(self, x)
+
+    def sizes(self, m: torch.Tensor) -> str:
+        return "/".join([f"{m.shape[2]}x{m.shape[3]}"] * len(m))
 
 
 def match(model) -> Optional[MegaSpec]:

@@ -28,14 +28,14 @@ residual sweeps (the matvec and its sampled estimate), whose numbers
 decide whether refinement and escalation run, are run on rank 0 alone
 and handed to every rank.
 
-Every tile goes through ``parallel.gram._tile_body``, so the tiles of a
-ConvNet-GP model run on the CUDA megakernel, with one pre-pass per image
-set per sweep (``gram.set_maps``): an assembly, a matvec or sampled
-residual sweep, a scoring call, a variances call; ``make_scores_fn``
-keeps the training set's maps beside its images.  Nothing is padded at the
-tile level (the JAX package pads inputs to a multiple of the tile size for
-XLA's static shapes): ragged edge tiles are sliced.  Only the factor
-buffer carries identity pad rows, in the JAX package's geometry.
+Every tile goes through ``parallel.gram._tile_body`` on the route that
+``gram.tile_spec`` chooses, with one pre-pass per image set per sweep
+(``gram.set_maps``): an assembly, a matvec or sampled residual sweep, a
+scoring call, a variances call; ``make_scores_fn`` keeps the training
+set's maps beside its images.  Nothing is padded at the tile level (the
+JAX package pads inputs to a multiple of the tile size for XLA's static
+shapes): ragged edge tiles are sliced.  Only the factor buffer carries
+identity pad rows, in the JAX package's geometry.
 """
 
 from __future__ import annotations
@@ -47,11 +47,11 @@ import numpy as np
 import torch
 
 from .. import settings
-from ..ops import megakernel
 from ..ops import solve as solve_ops
 from . import scheduler
 from .chol_dist import _factor_for, _mesh_device
-from .gram import _on_device, _tile_body, compute_gram_diag, set_maps
+from .gram import (_on_device, _tile_body, compute_gram_diag, set_maps,
+                   tile_spec)
 from .mesh import Mesh, agree, broadcast_array, is_root, row_span
 
 __all__ = ["classify_device_large", "gram_matvec_regen", "scores_regen",
@@ -96,7 +96,7 @@ def _assemble_scaled(model, x_all, s, b, n, n_pad,
     With ``mesh`` the buffer is born row-sharded: this rank's
     [rows_local, n_pad] rows ``row_span(n_pad, mesh)``, from the lower
     tiles that touch them, each cropped to the rows the rank holds."""
-    spec = megakernel.match(model)
+    spec = tile_spec(model)
     maps = set_maps(spec, x_all)
     if mesh is None:
         k = _identity(n_pad, x_all.device)
@@ -121,7 +121,7 @@ def _assemble_scaled(model, x_all, s, b, n, n_pad,
 def _matvec_scan(model, x_all, s, a_dev, b, n) -> torch.Tensor:
     """M @ a by regenerating the upper tiles: each tile adds its own
     contribution and its mirror's (none on the diagonal)."""
-    spec = megakernel.match(model)
+    spec = tile_spec(model)
     maps = set_maps(spec, x_all)
     out = torch.zeros_like(a_dev)
     for i0, j0 in scheduler.tile_offsets(n, n, b, True):
@@ -138,7 +138,7 @@ def _rows_matvec(model, x_all, s, a_dev, rows_idx, b, n) -> torch.Tensor:
     [len(rows_idx) * b, nrhs] rows in the order of ``rows_idx`` (rows past
     n in a short last block stay zero).  Cost is ``len(rows_idx) / nt`` of
     a full `_matvec_scan` sweep."""
-    spec = megakernel.match(model)
+    spec = tile_spec(model)
     maps = set_maps(spec, x_all)
     out = torch.zeros((len(rows_idx) * b, a_dev.shape[1]),
                       dtype=torch.float32, device=a_dev.device)
@@ -216,23 +216,23 @@ def _sampled_residual(model, x_all, s, a64, ys, y_norm, b, n,
 def make_scores_fn(model, X, a: np.ndarray, *, batch_size: int = 128,
                    device):
     """Upload ``X`` and the weights ``a`` [len(X), nrhs] once, with X's
-    pre-pass maps for a matched model, and return ``scores(Z) ->
-    [len(Z), nrhs]``, ``K(Z, X) @ a`` by tile regeneration (the
-    repeated-serving form of :func:`scores_regen`); each call runs one
-    pre-pass, on Z."""
+    pre-pass maps for a model with a ``tile_spec``, and return
+    ``scores(Z) -> [len(Z), nrhs]``, ``K(Z, X) @ a`` by tile regeneration
+    (the repeated-serving form of :func:`scores_regen`); each call runs
+    one pre-pass, on Z."""
     device = torch.device(device)
     x_all = _on_device(X, device)
     a_dev = torch.as_tensor(np.asarray(a, np.float32), device=device)
-    spec = megakernel.match(model)
+    spec = tile_spec(model)
     b = batch_size
-    x_maps = None if spec is None else megakernel.diag_maps(spec, x_all)
+    x_maps = set_maps(spec, x_all)
 
     @torch.no_grad()
     def scores(Z) -> np.ndarray:
         settings.check_precision_on(device)
         z_all = _on_device(Z, device)
         maps = (None if spec is None
-                else (megakernel.diag_maps(spec, z_all), x_maps))
+                else (set_maps(spec, z_all)[0], x_maps[0]))
         out = torch.zeros((len(z_all), a_dev.shape[1]), dtype=torch.float32,
                           device=device)
         for i0, j0 in scheduler.tile_offsets(len(z_all), len(x_all), b,
@@ -301,10 +301,10 @@ def variances_from_factor(factor, model, x_all: torch.Tensor,
     """GP posterior variances ``k_zz - || L^-1 (s * k_xz) ||^2`` for one
     query split through a live factor of M, a ``CardFactor`` or a
     ``ShardedFactor`` (empty-split safe; the sharded forward solve takes
-    rank 0's cross columns).  ``k_zz``
-    comes from ``compute_gram_diag`` per batch; the scaled cross
-    columns are built per [n, 512] block and never exist in full.  Accuracy
-    is the float32 accumulation floor, about eps32 * k_zz absolute.
+    rank 0's cross columns).  ``k_zz`` comes from ``compute_gram_diag``
+    per batch; the scaled cross columns are built per [n, 512] block and
+    never exist in full.  Accuracy is the float32 accumulation floor,
+    about eps32 * k_zz absolute.
 
     With ``a_scaled`` (the [n, C] scaled solution ``alpha / s``), the query
     scores ``K_zx @ alpha`` ride the same cross blocks
@@ -332,7 +332,7 @@ def variances_from_factor(factor, model, x_all: torch.Tensor,
                             progress=False).astype(np.float64)
     a_dev = (None if a_scaled is None else torch.as_tensor(
         np.asarray(a_scaled, np.float32), device=device))
-    spec = megakernel.match(model)
+    spec = tile_spec(model)
     maps = set_maps(spec, x_all, z_all)
     # column blocks: a multiple of the tile size, at least one tile
     cb = max(b, (_CROSS_BLOCK // b) * b)
@@ -342,11 +342,9 @@ def variances_from_factor(factor, model, x_all: torch.Tensor,
     for c0 in range(0, mz, cb):
         z_blk = z_all[c0:c0 + cb]
         w = torch.empty((n, len(z_blk)), dtype=torch.float32, device=device)
-        blk_maps = None if maps is None else (maps[0],
-                                              maps[1][:, c0:c0 + cb])
         for i0, j0 in scheduler.tile_offsets(n, len(z_blk), b, False):
-            blk = _tile_body(model, spec, x_all, z_blk, i0, j0, b, False,
-                             blk_maps)
+            blk = _tile_body(model, spec, x_all, z_all, i0, c0 + j0, b,
+                             False, maps)
             bi, bj = blk.shape
             w[i0:i0 + bi, j0:j0 + bj] = blk * s_dev[i0:i0 + bi, None]
         if sc is not None:

@@ -2,11 +2,10 @@
 
 PyTorch counterpart of ``cnn_gp_tpu/parallel/device_pipeline.py``.  The
 whole Gram is assembled in one card tensor, tile by tile over the
-scheduler's manifest through ``parallel.gram._tile_body`` (so every tile
-of a ConvNet-GP model goes through the CUDA megakernel, and every tile
-of a model with a pool through the full covariance's kernels, each on
-one pre-pass per image set), and the solve runs on that resident
-tensor:
+scheduler's manifest through ``parallel.gram._tile_body`` on the route
+``gram.tile_spec`` chooses (the CUDA megakernel, the full covariance's
+kernels, each on one pre-pass per image set, or ``apply_kernel``), and
+the solve runs on that resident tensor:
 
     K = gram_device(model, x, device=dev)                      # [N, N]
     acc = classify_device(model, xtr, ytr, (xte, yte), device=dev)

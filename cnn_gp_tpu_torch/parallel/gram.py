@@ -5,15 +5,11 @@ PyTorch counterpart of ``cnn_gp_tpu/parallel/gram.py``:
 * The dataset is put on the compute device once; each tile is a slice of
   it, and the same-example fix-up is driven by a global-index mask, so one
   tile body serves diagonal and off-diagonal tiles.
-* Models that ``ops.megakernel.match`` accepts (the paper ConvNet-GP
-  family) compute every full tile with the fused megakernel: one pre-pass
-  per image set per call (``set_maps``), then the pair kernel per tile on
-  the tile's slices of those maps; their symmetric diagonal k(x_i, x_i)
-  is read out of the pre-pass.  Models with an ``AvgPool2d`` (Myrtle-10)
-  take the full covariance (``ops/fullcov.py``): one pre-pass per image
-  set (each image's own covariance: the variance maps and k(x, x)), then
-  each tile's pairs in memory-bounded chunks; ``tile_spec`` gives either
-  spec.  Other models, and the diagonal k(x_i, z_i) of two sets, go
+* ``tile_spec`` is every Gram-level caller's one choice of route: the
+  megakernel's spec (the paper ConvNet-GP family), the full covariance's
+  (a model with an ``AvgPool2d``), or None.  A spec's pre-pass runs once
+  per image set per call (``set_maps``) and each tile reads its rows of
+  those maps.  Other models, and the diagonal k(x_i, z_i) of two sets, go
   through ``apply_kernel``.
 * One tile per launch.  Launches are asynchronous; a consumer thread
   copies finished tiles to the host (on the producer's stream) and writes
@@ -45,18 +41,13 @@ from . import scheduler
 __all__ = ["compute_gram", "compute_gram_diag", "save_K", "gram_in_memory",
            "check_block_finite", "set_maps", "tile_spec", "call_span"]
 
-# the launch counters whose change over a Gram call its span reports
-_COUNTERS = ((megakernel, ("launches", "prepass_launches")),
-             (boxfilter, ("launches", "prologue_launches",
-                          "epilogue_launches", "vjp_launches")),
-             (arccos, ("launches", "vjp_launches")),
-             (fullcov, ("conv_launches", "pool_launches",
-                        "conv_walk_launches")))
+# the kernel modules whose ``COUNTERS`` a Gram call's span reports
+_COUNTERS = (megakernel, boxfilter, arccos, fullcov)
 
 
 def _launch_counts() -> dict:
     return {f"{m.__name__.rsplit('.', 1)[-1]}.{c}": getattr(m, c)
-            for m, names in _COUNTERS for c in names}
+            for m in _COUNTERS for c in m.COUNTERS}
 
 
 @contextlib.contextmanager
@@ -75,51 +66,35 @@ def call_span(entry: str, n1: int, n2: int, b: int):
 
 
 def tile_spec(model):
-    """The spec a Gram-level call tiles ``model`` with: the megakernel's
+    """The one choice of a Gram tile's route: the megakernel's spec
     (``megakernel.match``), the full covariance's for a model with a pool
-    (``fullcov.match``), or None (``apply_kernel`` per tile)."""
+    (``fullcov.match``), or None (``apply_kernel`` per tile).  A spec's
+    ``maps``, ``rows``, ``tile``, ``readout`` and ``sizes`` are the route;
+    only its module knows how its maps are laid out."""
     spec = megakernel.match(model)
     return spec if spec is not None else fullcov.match(model)
 
 
-def _full_maps(spec, x_all, z_all):
-    with timing.span("gram.prepass") as s:
-        sets = [fullcov.self_maps(spec, x_all)]
-        if z_all is not None and z_all is not x_all:
-            sets.append(fullcov.self_maps(spec, z_all))
-        s.set(sets=len(sets), images=sum(len(m.readout) for m in sets),
-              maps="/".join(f"{v.shape[1]}x{v.shape[2]}"
-                            for v in sets[0].factors),
-              bytes=sum(m.nbytes() for m in sets))
-    return sets[0], sets[-1]
-
-
 def set_maps(spec, x_all, z_all=None):
     """The pre-pass maps of the image sets a Gram-level call tiles, each
-    computed once: ``(dx, dz)``, ``megakernel.diag_maps`` of ``x_all`` and
-    of ``z_all`` (``dz`` is ``dx`` when ``z_all`` is ``x_all`` or None),
-    or for a ``fullcov.FullSpec`` each set's ``fullcov.self_maps`` (the
-    span's attrs: the sets, the images, each ReLU's map size and the
-    maps' bytes); None when ``spec`` is None.  Maps depend on the
+    computed once, in one ``gram.prepass`` span: ``(dx, dz)``, ``spec.maps``
+    of ``x_all`` and of ``z_all`` (``dz`` is ``dx`` when ``z_all`` is
+    ``x_all`` or None); None when ``spec`` is None.  Maps depend on the
     hyperparameters, so a new spec needs new maps."""
     if spec is None:
         return None
-    if isinstance(spec, fullcov.FullSpec):
-        return _full_maps(spec, x_all, z_all)
-    with timing.span("gram.prepass"):
-        dx = megakernel.diag_maps(spec, x_all)
-        if z_all is None or z_all is x_all:
-            return dx, dx
-        return dx, megakernel.diag_maps(spec, z_all)
+    with timing.span("gram.prepass") as s:
+        sets = [x_all] if z_all is None or z_all is x_all else [x_all, z_all]
+        maps = [spec.maps(x) for x in sets]
+        s.set(sets=len(sets), images=sum(len(x) for x in sets),
+              maps=spec.sizes(maps[0]), bytes=sum(m.nbytes for m in maps))
+    return maps[0], maps[-1]
 
 
 def _tile_body(model, spec, x_all, z_all, i0, j0, b, symmetric, maps):
     """The [<=b, <=b] tile of K(x_all, z_all) at (i0, j0), with the
-    global-index same-example mask when ``symmetric``.  With a ``spec``,
-    ``maps`` holds the pre-pass maps of x_all and z_all image for image
-    (``set_maps``) and the pair kernel reads the tile's slices of them
-    (for a ``fullcov.FullSpec``, ``fullcov.pair_tile`` reads the tile's
-    rows of each set's pre-pass); otherwise ``apply_kernel``."""
+    global-index same-example mask when ``symmetric``: ``spec.tile`` on
+    the tile's rows of ``maps`` (``set_maps``), or ``apply_kernel``."""
     x = x_all[i0:i0 + b]
     z = z_all[j0:j0 + b]
     mask = None
@@ -127,15 +102,10 @@ def _tile_body(model, spec, x_all, z_all, i0, j0, b, symmetric, maps):
         rows = i0 + torch.arange(len(x), device=x.device)
         cols = j0 + torch.arange(len(z), device=z.device)
         mask = rows[:, None] == cols[None, :]
-    if isinstance(spec, fullcov.FullSpec):
-        dx, dz = maps
-        return fullcov.pair_tile(spec, x, z, dx.rows(i0, b), dz.rows(j0, b),
-                                 mask)
-    if spec is not None:
-        dx, dz = maps
-        return megakernel.pair_tile(spec, x, z, dx[:, i0:i0 + b],
-                                    dz[:, j0:j0 + b], mask)
-    return apply_kernel(model, x, z, False, False, mask)
+    if spec is None:
+        return apply_kernel(model, x, z, False, False, mask)
+    dx, dz = maps
+    return spec.tile(x, z, spec.rows(dx, i0, b), spec.rows(dz, j0, b), mask)
 
 
 def _on_device(a, device) -> torch.Tensor:
@@ -329,13 +299,10 @@ def compute_gram(model, X, Z=None, *, device, batch_size: int = 200,
 def compute_gram_diag(model, X, Z=None, *, device, batch_size: int = 200,
                       store=None, name: Optional[str] = None,
                       progress: bool = True, print_interval: float = 2.0):
-    """Diagonal-only kernel k(x_i, z_i).  For Z None and a model that
-    ``megakernel.match`` accepts, k(x_i, x_i) is the readout of the last
-    halved pre-ReLU diagonal map, ``megakernel.diag_maps`` (the pre-pass
-    kernel on the card, its plain version on the CPU); for a model with a
-    pool, the readout of each image's own covariance,
-    ``fullcov.self_maps``; otherwise ``apply_kernel`` with
-    ``diag=True``."""
+    """Diagonal-only kernel k(x_i, z_i).  For Z None and a model with a
+    ``tile_spec``, k(x_i, x_i) is the spec's ``readout``, read out of
+    each batch's pre-pass (the kernels on the card, their plain versions
+    on the CPU); otherwise ``apply_kernel`` with ``diag=True``."""
     symmetric = Z is None
     n = len(X)
     b = min(batch_size, n)
@@ -360,13 +327,9 @@ def compute_gram_diag(model, X, Z=None, *, device, batch_size: int = 200,
                                 total=len(offsets))
     spec = tile_spec(model) if symmetric else None
     for i0 in offsets:
-        if isinstance(spec, fullcov.FullSpec):
-            dev = fullcov.self_maps(spec, x_all[i0:i0 + b]).readout
-        elif spec is not None:
-            dev = megakernel.diag_readout(spec, x_all[i0:i0 + b])
-        else:
-            dev = apply_kernel(model, x_all[i0:i0 + b], z_all[i0:i0 + b],
-                               symmetric, True)
+        x = x_all[i0:i0 + b]
+        dev = (spec.readout(x) if spec is not None else
+               apply_kernel(model, x, z_all[i0:i0 + b], symmetric, True))
         block = dev.cpu().numpy()
         check_block_finite(block[:, None], i0, 0)
         out[i0:i0 + len(block)] = block

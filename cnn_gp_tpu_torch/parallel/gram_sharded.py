@@ -9,9 +9,9 @@ one process (``parallel/mesh.py``) and the same call runs on every rank:
 * the manifest is cut into rounds of ``size * tiles_per_round_per_device``
   tiles, padded to a multiple of ``size`` by repeating tile 0, and dealt
   round-robin: rank d computes ``chunk[d::size]``, each tile with
-  ``gram._tile_body``, so a model that ``megakernel.match`` accepts runs
-  the CUDA megakernel on the card, on maps from one pre-pass per image
-  set on each rank;
+  ``gram._tile_body`` on the route ``gram.tile_spec`` chooses (the CUDA
+  megakernel or the full covariance on the card), on maps from one
+  pre-pass per image set on each rank;
 * each tile is copied into a [b, b] slot of the round's send buffer (an
   edge tile is short: the block is padded, never the data, since a zero
   image has zero variance and its arccos is 0/0), and one ``all_gather``

@@ -7,8 +7,8 @@ factor (``chol_dist.CardFactor``) grows in place (``CardFactor.extend``):
 each batch of m new points costs
 
 * the [m, N] and [m, m] cross-covariance blocks, through the same tile
-  path as every Gram (``parallel.gram._tile_body``: the CUDA megakernel for
-  the ConvNet-GP family, one pre-pass per image set),
+  path as every Gram (``parallel.gram._tile_body`` on the route that
+  ``tile_spec`` chooses, one pre-pass per image set),
 * one m-wide blocked forward solve and an [m, m] Cholesky on the card
   (O(N^2 m), not O((N + m)^3 / 3)),
 * one factor solve and float64 iterative refinement for the posterior,
@@ -53,7 +53,6 @@ import numpy as np
 import torch
 
 from .. import serving
-from ..ops import megakernel
 from ..ops import solve as solve_ops
 from . import scheduler
 from .chol_dist import (_blocked_residual_fn, _factor_for, _ir_solve,
@@ -62,7 +61,7 @@ from .chol_dist import (_blocked_residual_fn, _factor_for, _ir_solve,
 from .device_large import _assemble_scaled, _matvec_scan, _scaled_tile
 from .mesh import Mesh, agree
 from .gram import (_tile_body, compute_gram, compute_gram_diag,
-                   gram_in_memory, set_maps)
+                   gram_in_memory, set_maps, tile_spec)
 
 __all__ = ["IncrementalGP"]
 
@@ -256,7 +255,7 @@ class IncrementalGP:
         unit diagonal are assembled on the card, tile by tile, and handed
         to ``extend_device``; only the [m] new diagonal reaches the
         host."""
-        b, spec = self.batch_size, megakernel.match(self.model)
+        b, spec = self.batch_size, tile_spec(self.model)
         s_new = 1.0 / np.sqrt(self._diag(z) + self._jitter_raw)
         s_z = torch.from_numpy(s_new.astype(np.float32)).to(self.device)
         x_old, s_old = self._x_dev[:n], self._s_dev[:n]

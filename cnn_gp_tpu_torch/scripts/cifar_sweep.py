@@ -3,10 +3,10 @@
 PyTorch counterpart of ``scripts/cifar_sweep.py``, with ``--config`` and
 ``--tiles`` as there and ``--device``: the steady-state rate of one
 config's Gram tiles across tile sizes, each tile the port's
-``parallel/gram.py::_tile_body`` (the tile ``compute_gram`` and
-``gram_device`` launch), so the outcome is a measured default or a
-written no-go.  The config's own ``kernel_batch_size`` (350 for cifar10)
-is swept as it is: the CUDA path needs no lane alignment.
+``parallel/gram.py::_tile_body`` on ``tile_spec``'s route (the tile that
+``compute_gram`` and ``gram_device`` launch), so the outcome is a measured
+default or a written no-go.  The config's own ``kernel_batch_size`` (350
+for cifar10) is swept as it is: the CUDA path needs no lane alignment.
 
 Protocol: per tile size, ``--reps`` tiles over a rotating set of offsets
 into 4 b images are timed with CUDA events (a host clock after a
@@ -28,8 +28,8 @@ import numpy as np
 import torch
 
 from cnn_gp_tpu_torch import configs, kernels as K, settings
-from cnn_gp_tpu_torch.ops import boxfilter, megakernel
-from cnn_gp_tpu_torch.parallel.gram import _tile_body, set_maps
+from cnn_gp_tpu_torch.ops import boxfilter
+from cnn_gp_tpu_torch.parallel.gram import _tile_body, set_maps, tile_spec
 from cnn_gp_tpu_torch.utils import FP32_PEAK, resolve_device
 
 RELU_OPS = 38              # per pair and pixel: the arccos update (37
@@ -91,7 +91,7 @@ def measure(config_name: str, b: int, reps: int, samples: int,
     rng = np.random.RandomState(0)
     x = torch.as_tensor(rng.rand(b * 4, *shape).astype(np.float32),
                         device=device)
-    spec = megakernel.match(model)
+    spec = tile_spec(model)
     on_card = device.type == "cuda"
     maps = set_maps(spec, x)        # one pre-pass, as a Gram call has
 

@@ -9,8 +9,11 @@ kernel in interpret mode; every hoisted Gram-level caller against the
 per-tile route (``gram_tile`` per tile, its own pre-pass: the same
 bits); and the callers' launches through the CUDA launch code with a
 stubbed ``_lib`` (one pre-pass per set per call, the pair kernel's
-pointers and layer strides at ragged edges).  The kernels run on the
-card in tests/test_torch_cuda.py and chip_smoke.py."""
+pointers and layer strides at ragged edges).  A model with a pool takes
+the full covariance's spec through the same seam (``gram.tile_spec``,
+``set_maps``, the spec's ``rows`` and ``tile``): every caller against
+``apply_kernel`` per tile, and its pre-pass spans.  The kernels run on
+the card in tests/test_torch_cuda.py and chip_smoke.py."""
 
 import ctypes
 
@@ -21,11 +24,14 @@ import torch
 import cnn_gp_tpu as G
 from cnn_gp_tpu.ops import megakernel as jmk
 import cnn_gp_tpu_torch as T
+from cnn_gp_tpu_torch.kernels import apply_kernel
+from cnn_gp_tpu_torch.ops import fullcov
 from cnn_gp_tpu_torch.ops import megakernel as tmk
 from cnn_gp_tpu_torch.parallel import (IncrementalGP, classify_device_large,
                                        compute_gram, compute_gram_sharded,
                                        gram, gram_device, make_mesh)
 from cnn_gp_tpu_torch.parallel import device_large
+from cnn_gp_tpu_torch.utils import timing
 
 CPU = torch.device("cpu")
 
@@ -139,8 +145,8 @@ Z = _images(19, 3, 8, seed=2)
 Y = np.random.RandomState(3).randint(0, 4, size=40)
 
 
-def _run(name):
-    model = _model()
+def _run(name, model=None):
+    model = _model() if model is None else model
     if name == "compute_gram":
         return [compute_gram(model, X, device=CPU, batch_size=16,
                              progress=False),
@@ -203,6 +209,57 @@ def test_hoisted_caller_equals_the_per_tile_route(name, monkeypatch):
         g = g.numpy() if isinstance(g, torch.Tensor) else np.asarray(g)
         w = w.numpy() if isinstance(w, torch.Tensor) else np.asarray(w)
         np.testing.assert_array_equal(g, w)
+
+
+def _pooled():
+    """A small pooled model on 8x8 images: its Gram takes the full
+    covariance (the megakernel refuses it)."""
+    return T.Sequential(T.Conv2d(3, var_weight=1.7, var_bias=0.1), T.ReLU(),
+                        T.AvgPool2d(2), T.Conv2d(3, var_weight=1.3), T.ReLU(),
+                        T.AvgPool2d(4), T.Conv2d(1, padding=0))
+
+
+@pytest.mark.parametrize("name", CALLERS)
+def test_pooled_caller_equals_the_per_tile_route(name, monkeypatch):
+    """Each caller takes a pooled model's full-covariance spec from
+    gram.tile_spec, with one pre-pass per image set, and gives the values
+    of apply_kernel per tile (each tile its own pre-pass) within 1e-6."""
+    model = _pooled()
+    assert isinstance(gram.tile_spec(model), fullcov.FullSpec)
+    got = _run(name, model)
+    monkeypatch.setattr(fullcov.FullSpec, "tile",
+                        lambda spec, x, z, mx, mz, mask=None:
+                        apply_kernel(model, x, z, False, False, mask))
+    want = _run(name, model)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        g = g.numpy() if isinstance(g, torch.Tensor) else np.asarray(g)
+        w = w.numpy() if isinstance(w, torch.Tensor) else np.asarray(w)
+        assert np.isfinite(g).all()
+        np.testing.assert_allclose(g, w, rtol=1e-6, atol=0)
+
+
+def test_pooled_regen_sweeps_and_scores_run_one_prepass_per_set():
+    """For a pooled model, as for the megakernel's: a regenerating matvec
+    sweep records one gram.prepass (one set, all its images);
+    make_scores_fn one when it is made and one per call."""
+    model = _pooled()
+    x_all = gram._on_device(X, CPU)
+    s = torch.ones(40)
+    a = torch.ones(40, 2)
+    with torch.no_grad(), timing.recording() as found:
+        device_large._matvec_scan(model, x_all, s, a, 16, 40)
+        made = len(found)
+        fn = device_large.make_scores_fn(model, X,
+                                         np.ones((40, 2), np.float32),
+                                         batch_size=16, device=CPU)
+        fn(Z)
+        fn(Z)
+    pre = [sp for sp in found if sp.name == "gram.prepass"]
+    assert [(sp.attrs["sets"], sp.attrs["images"]) for sp in pre] == [
+        (1, 40), (1, 40), (1, 19), (1, 19)]
+    assert [sp.name for sp in found[:made]].count("gram.prepass") == 1
+    assert pre[0].attrs["maps"] == "8x8/4x4"
 
 
 class _Lib:
