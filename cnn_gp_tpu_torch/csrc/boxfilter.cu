@@ -47,9 +47,15 @@
 // at 3.35 TB/s); the box sum is ~6 operations per element and a uniform
 // window, far below the ridge, so tensor cores have nothing to do here.
 // The ReLU's ~38 rounded FP32 operations and two special-function
-// sequences per element (the IEEE square roots of the sine and of the
-// polynomial; the side maps' rsqrt and sqrt come from the factor table)
-// issue in about as long as the bytes take.  The design:
+// sequences per element (the square roots of the sine and of the
+// polynomial, branch-free: csrc/arccos.cuh's sqrt_unit; the side maps'
+// rsqrt and sqrt come from the factor table) issue in about as long as
+// the bytes take, so the prologue keeps its per-element stream to that
+// arithmetic, four values at a time: the plane's pair, the form and the
+// arccos are settled per plane or per launch (relu_run below).  On an
+// H100 the 28 x 28 launch with the prologue took 0.287 ms with IEEE
+// roots and per-element indices, 0.207 ms so (chip_smoke.py, phase 3b).
+// The design:
 //   - a persistent grid (as many blocks as fit on the SMs); a block walks
 //     its share of runs of consecutive planes of the flat plane axis,
 //     each run contiguous in memory; with the "fast" ReLU prologue it is a
@@ -63,14 +69,19 @@
 //     current run; a run's tail that is not a multiple of 16 bytes, and
 //     a run at an address that is not 16-byte aligned (a view), load with
 //     scalar loads in the same kernel;
-//   - the prologue in place on the staged planes; the ReLU of a fixed
-//     geometry takes the run's planes as one flat range, kThreads values
-//     at a time, four a thread in flight (relu_run: no thread idles on
-//     14 x 14 planes, and the warps of 28 x 28 runs share evenly); in the
-//     "fast" form each value reads its row and column factors from the
-//     table (2.5 MB at 200 x 200 28 x 28, inside the 50 MB L2), in the
-//     "reference" form xx and yy; a thread's loads are issued together
-//     before its arithmetic;
+//   - the prologue in place on the staged planes; the "fast" ReLU of a
+//     fixed geometry (relu_run) takes the run's planes as one flat range
+//     in groups of four values of one plane (one 16-byte load of the
+//     values and of each side's factors, one store; one value where a
+//     plane is not a multiple of four), kThreads groups at a time (no
+//     thread idles on 14 x 14 planes, and the warps of 28 x 28 runs share
+//     evenly), with the arccos a template parameter chosen once per run;
+//     each value reads its row and column factors from the table (2.5 MB
+//     at 200 x 200 28 x 28, inside the 50 MB L2) at the plane's offsets,
+//     which the block finds once per plane for the next run (and the
+//     mask's mark) into shared memory; the "reference" form and run-time
+//     geometries take the element loop, xx and yy read per value; four
+//     blocks an SM (64 registers), which the prologue's latency needs;
 //   - the W pass into a [Wo, H] buffer, the H pass, the scale, the bias
 //     and the skip, stored coalesced;
 //   - the geometries of the ResNet configs (28/14/7 and 32/16/8 maps,
@@ -106,7 +117,7 @@ constexpr int kThreads = 256;
 constexpr int kStages = 3;               // runs in flight per block
 constexpr int kRunFloats = 2048;         // input floats a run aims at
 constexpr int kMaxStagedBytes = 100 * 1024;
-constexpr int kMinBlocksPerSM = 3;
+constexpr int kMinBlocksPerSM = 4;
 
 // What the prologue does to a map's planes before the filter.
 enum Prologue { kAsIs = 0, kHalf = 1, kRelu = 2 };
@@ -200,55 +211,131 @@ __device__ __forceinline__ void issue(const Layer& L, const Shape& sh,
   if (bs != 0) bulk_load(stage + sh.in_floats, skip, bs, bar);
 }
 
-// The ReLU prologue of a run of n planes of a fixed N x N geometry, the
-// first `first` of map 0, in place on the staged planes xs (the first
-// bulk_in values staged, the rest read from src): the run's planes as one
-// flat range of n * N * N values, kThreads at a time (so no thread idles
-// where a plane has fewer pixels than the block has threads, and the
-// block's warps share the work evenly), four values a thread in flight:
-// each value's loads (its row and column factors from the table, "fast";
-// or xx and yy in their .r, "reference"; xx alone when masked), then
-// each value's ReLU.
+// The pair of a plane of a run through the "fast" ReLU prologue, found
+// once per plane: the factor-table (and xx) index of its row plane i,
+// i * W * H, and of its column plane j, y_off + j * W * H, or kMaskedPlane
+// where the mask marks the pair (a same example: xx / 2).
+struct PlaneRow {
+  unsigned x;
+  unsigned y;
+};
+constexpr unsigned kMaskedPlane = 0xffffffffu;
+// planes of a fixed geometry's run: at most kRunFloats over the smallest
+// plane, 7 x 7
+constexpr int kMaxRunPlanes = 48;
+static_assert(kRunFloats / 49 <= kMaxRunPlanes && kMaxRunPlanes <= kThreads,
+              "a run's plane rows, one a thread");
+
+// The row of plane q of a pair map of N x N planes.
 template <int N>
-__device__ __forceinline__ void relu_run(const Layer& L, unsigned first,
-                                         int n, float* xs, const float* src,
+__device__ __forceinline__ PlaneRow plane_row(const Layer& L, unsigned q) {
+  const unsigned i = fast_div(q, L.by_bz), j = q - i * L.bz;
+  const bool masked = L.mask != nullptr && L.mask[q] != 0;
+  return PlaneRow{i * (N * N),
+                  masked ? kMaskedPlane : L.y_off + j * (N * N)};
+}
+
+// The rows of run r's planes, one a thread, if its map takes the ReLU.
+template <int N>
+__device__ __forceinline__ void plane_rows(const Layer& L, const Shape& sh,
+                                           unsigned r, PlaneRow* rows,
+                                           int t) {
+  const Run run = run_of(L, r, sh.ppr);
+  if (run.m.prologue == kRelu && t < run.n)
+    rows[t] = plane_row<N>(L, run.first + t);
+}
+
+// The "fast" ReLU prologue of a run of n planes of a fixed N x N
+// geometry, in place on the staged planes xs (the first bulk_in values
+// staged, the rest read from src), with the arccos chosen at compile time
+// (EXACT: acosf) and each plane's pair from rows: the run's planes as one
+// flat range of n * N * N values in groups of kVec consecutive values of
+// one plane (4 where a plane holds a multiple of 4, so a group's value,
+// row and column factors are 16-byte loads and its store one; else 1),
+// kThreads groups at a time, four values a thread in flight (so no
+// thread idles where a plane has fewer pixels than the block has
+// threads, and the block's warps share the work evenly): the loads, then
+// the ReLUs.
+template <int N, int EXACT>
+__device__ __forceinline__ void relu_run(const Layer& L,
+                                         const PlaneRow* rows, int n,
+                                         float* xs, const float* src,
                                          int bulk_in, int t) {
   constexpr int kIn = N * N;
-  constexpr int kBatch = 4;
-  const int total = n * kIn;
-  const bool fast = L.form == kReluFast;
-  for (int b0 = t; b0 < total; b0 += kBatch * kThreads) {
-    float vin[kBatch];
-    RowFactor fx[kBatch], fy[kBatch];
-    bool masked[kBatch];
+  constexpr int kVec = kIn % 4 == 0 ? 4 : 1;
+  constexpr int kGroups = 4 / kVec;
+  constexpr int kPerPlane = kIn / kVec;
+  const int total = n * kPerPlane;
+  for (int g0 = t; g0 < total; g0 += kGroups * kThreads) {
+    float v[kGroups][kVec];
+    RowFactor fx[kGroups][kVec], fy[kGroups][kVec];
+    unsigned xi[kGroups];
+    bool masked[kGroups];
 #pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int e = b0 + u * kThreads;
-      if (e < total) {
-        const int pl = e / kIn, p = e - pl * kIn;
-        const unsigned q = first + pl;
-        const unsigned i = fast_div(q, L.by_bz), j = q - i * L.bz;
-        masked[u] = L.mask != nullptr && L.mask[q] != 0;
-        vin[u] = e < bulk_in ? xs[e] : src[e];
-        if (!masked[u] && fast) {
-          fx[u] = L.table[i * kIn + p];
-          fy[u] = L.table[L.y_off + j * kIn + p];
+    for (int u = 0; u < kGroups; ++u) {
+      const int g = g0 + u * kThreads;
+      if (g < total) {
+        const int pl = g / kPerPlane;
+        const unsigned p = static_cast<unsigned>(g - pl * kPerPlane) * kVec;
+        const PlaneRow row = rows[pl];
+        const int e = g * kVec;
+        masked[u] = row.y == kMaskedPlane;
+        xi[u] = row.x + p;
+        if constexpr (kVec == 4) {
+          if (e < bulk_in) {
+            const float4 q = *reinterpret_cast<const float4*>(xs + e);
+            v[u][0] = q.x;
+            v[u][1] = q.y;
+            v[u][2] = q.z;
+            v[u][3] = q.w;
+          } else {
+#pragma unroll
+            for (int k = 0; k < 4; ++k) v[u][k] = src[e + k];
+          }
+          if (!masked[u]) {
+            // two entries a 16-byte load: (r, s) of pixels p, p + 1
+            const float4* const tx =
+                reinterpret_cast<const float4*>(L.table + xi[u]);
+            const float4* const ty =
+                reinterpret_cast<const float4*>(L.table + row.y + p);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float4 a = tx[h], b = ty[h];
+              fx[u][2 * h] = RowFactor{a.x, a.y};
+              fx[u][2 * h + 1] = RowFactor{a.z, a.w};
+              fy[u][2 * h] = RowFactor{b.x, b.y};
+              fy[u][2 * h + 1] = RowFactor{b.z, b.w};
+            }
+          }
         } else {
-          fx[u].r = __ldg(L.xx + i * kIn + p);
-          fy[u].r = masked[u] ? 0.0f : __ldg(L.yy + j * kIn + p);
+          v[u][0] = e < bulk_in ? xs[e] : src[e];
+          if (!masked[u]) {
+            fx[u][0] = L.table[xi[u]];
+            fy[u][0] = L.table[row.y + p];
+          }
         }
       }
     }
 #pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int e = b0 + u * kThreads;
-      if (e < total) {
+    for (int u = 0; u < kGroups; ++u) {
+      const int g = g0 + u * kThreads;
+      if (g < total) {
+        float o[kVec];
         if (masked[u]) {
-          xs[e] = __fmul_rn(fx[u].r, 0.5f);
-        } else if (fast) {
-          xs[e] = relu_factored(vin[u], fx[u], fy[u], L.exact);
+#pragma unroll
+          for (int k = 0; k < kVec; ++k)
+            o[k] = __fmul_rn(__ldg(L.xx + xi[u] + k), 0.5f);
         } else {
-          xs[e] = relu_reference(vin[u], fx[u].r, fy[u].r, L.exact);
+#pragma unroll
+          for (int k = 0; k < kVec; ++k)
+            o[k] = relu_factored(v[u][k], fx[u][k], fy[u][k], EXACT);
+        }
+        float* const dst = xs + g * kVec;
+        if constexpr (kVec == 4) {
+          *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2],
+                                                        o[3]);
+        } else {
+          dst[0] = o[0];
         }
       }
     }
@@ -272,6 +359,9 @@ box_layer_staged(const __grid_constant__ Layer L,
 
   extern __shared__ __align__(128) float smem[];
   __shared__ __align__(8) uint64_t bars[kStages];
+  // the "fast" ReLU prologue's plane rows of the current run and the next
+  __shared__ PlaneRow rows[kUnroll ? 2 : 1][kUnroll ? kMaxRunPlanes : 1];
+  const bool row_runs = kUnroll && L.table != nullptr;
   float* const ts = smem + kStages * sh.stage_floats;   // [ppr, Wo, H]
   const int t = threadIdx.x;
 
@@ -281,18 +371,21 @@ box_layer_staged(const __grid_constant__ Layer L,
     if (L.bias_p != nullptr) bias = *L.bias_p;
   }
 
-  if (t == 0) {
-    for (int s = 0; s < kStages; ++s) mbar_init(&bars[s], 1);
-    fence_mbarrier_init();
-    fence_proxy_async();
-  }
-  __syncthreads();
   // the block's runs: a contiguous share of the run axis, so that
   // consecutive runs mostly share their row plane (and its row of the
   // factor table, which stays in L1)
   const unsigned share = (total_runs + gridDim.x - 1) / gridDim.x;
   const unsigned r0 = blockIdx.x * share;
   const unsigned r_end = r0 + share < total_runs ? r0 + share : total_runs;
+  if constexpr (kUnroll) {
+    if (row_runs && r0 < r_end) plane_rows<N>(L, sh, r0, rows[0], t);
+  }
+  if (t == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(&bars[s], 1);
+    fence_mbarrier_init();
+    fence_proxy_async();
+  }
+  __syncthreads();
   if (t == 0) {
     for (int s = 0; s < kStages; ++s) {
       if (r0 + s < r_end)
@@ -331,8 +424,13 @@ box_layer_staged(const __grid_constant__ Layer L,
     // 1. the prologue, and the loads that the bulk copy left out
     bool done = false;
     if constexpr (kUnroll) {
-      if (run.m.prologue == kRelu) {
-        relu_run<N>(L, run.first, n, xs, src, bulk_in, t);
+      if (row_runs && run.m.prologue == kRelu) {
+        const PlaneRow* const rw = rows[it & 1];
+        if (L.exact) {
+          relu_run<N, 1>(L, rw, n, xs, src, bulk_in, t);
+        } else {
+          relu_run<N, 0>(L, rw, n, xs, src, bulk_in, t);
+        }
         done = true;
       }
     }
@@ -378,6 +476,12 @@ box_layer_staged(const __grid_constant__ Layer L,
       }
     }
     __syncthreads();
+    // the next run's plane rows (their buffer's last reads were the
+    // previous run's prologue), read after this run's barriers
+    if constexpr (kUnroll) {
+      if (row_runs && r + 1 < r_end)
+        plane_rows<N>(L, sh, r + 1, rows[(it + 1) & 1], t);
+    }
 
     // 2. the W pass: [n, W, H] -> [n, Wo, H]
     for (int e = t; e < n * mid_size; e += kThreads) {

@@ -17,8 +17,11 @@ tensors, or raise.  The same kernel also runs the fused ResNet layer of
 ``ops/layer.py`` (the ReLU in its prologue, the ``Sum`` add in its
 epilogue; ``_launch_layer``).  ``launches`` counts every launch of the
 kernel; ``prologue_launches`` and ``epilogue_launches`` count those with
-the ReLU prologue and with the skip epilogue; ``copies`` counts inputs
-that were not contiguous and were copied before a launch.
+the ReLU prologue and with the skip epilogue; ``relu_run_launches`` those
+of the prologue's launches whose planes take the kernel's fixed-geometry
+``relu_run`` (the "fast" form on a geometry of ``FIXED_GEOMETRIES``,
+``_takes_relu_run``); ``copies`` counts inputs that were not contiguous
+and were copied before a launch.
 
 The adjoint (the backward of ``conv_maps`` and of the fused layer) is a
 second hand-written kernel, ``csrc/boxfilter_vjp.cu``: per axis the
@@ -53,8 +56,8 @@ __all__ = ["same_padding", "resolve_padding", "out_size", "box_filter_2d",
            "box_filter_2d_reference", "conv_maps", "conv_maps_reference",
            "box_filter_2d_vjp_reference",
            "check_method", "METHODS", "DEFAULT_METHOD", "build", "launches",
-           "prologue_launches", "epilogue_launches", "vjp_launches",
-           "copies", "COUNTERS"]
+           "prologue_launches", "epilogue_launches", "relu_run_launches",
+           "vjp_launches", "copies", "COUNTERS", "FIXED_GEOMETRIES"]
 
 PadT = Tuple[int, int]
 Operand = Union[None, float, torch.Tensor]
@@ -62,9 +65,10 @@ Operand = Union[None, float, torch.Tensor]
 launches = 0            # box-filter kernel launches, every form
 prologue_launches = 0   # of them, with the ReLU prologue
 epilogue_launches = 0   # of them, with the skip epilogue
+relu_run_launches = 0   # of the prologue's, those that take relu_run
 vjp_launches = 0        # launches of the adjoint kernel
 COUNTERS = ("launches", "prologue_launches", "epilogue_launches",
-            "vjp_launches")
+            "relu_run_launches", "vjp_launches")
 copies = 0     # inputs copied to make them contiguous before a launch
 _lib = None
 _partials_sizes = (None, {})   # (the library, its partials sizes by shape)
@@ -74,6 +78,15 @@ METHODS = ("shifts", "separable", "direct", "matmul")
 DEFAULT_METHOD = "separable"   # settings.conv_method's default, as in JAX
 # what a fused launch's prologue does to a map (csrc/boxfilter.cu)
 AS_IS, HALF, RELU = 0, 1, 2
+# the geometries that csrc/boxfilter.cu's kFixedGeometries instantiates:
+# (map side, k, stride, lo, output side), square maps, dilation 1
+FIXED_GEOMETRIES = frozenset({
+    (28, 3, 1, 1, 28), (28, 1, 1, 0, 28), (28, 1, 2, 0, 14),
+    (28, 3, 2, 1, 14), (28, 4, 1, 1, 28), (28, 7, 1, 3, 28),
+    (14, 3, 1, 1, 14), (14, 1, 2, 0, 7), (14, 3, 2, 1, 7), (7, 3, 1, 1, 7),
+    (7, 7, 1, 0, 1), (32, 3, 1, 1, 32), (32, 1, 1, 0, 32), (32, 1, 2, 0, 16),
+    (32, 3, 2, 1, 16), (16, 3, 1, 1, 16), (16, 1, 2, 0, 8), (16, 3, 2, 1, 8),
+    (8, 3, 1, 1, 8), (8, 8, 1, 0, 1)})
 
 
 def check_method() -> None:
@@ -432,6 +445,18 @@ def _contiguous(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous()
 
 
+def _takes_relu_run(geom: Geometry, w: int, h: int, form: int,
+                    runtime_geometry: bool) -> bool:
+    """Whether a launch with the ReLU prologue in ``form`` over [w, h]
+    maps takes the kernel's ``relu_run``: the "fast" form on a geometry of
+    ``FIXED_GEOMETRIES`` (whose planes the kernel always stages), unless
+    ``runtime_geometry``."""
+    k, s, (lo, _), d = geom
+    wo, ho = geom.out_shape(w, h)
+    return (form == arccos.PAIR_FAST and not runtime_geometry and d == 1
+            and w == h and wo == ho and (w, k, s, lo, wo) in FIXED_GEOMETRIES)
+
+
 def _launch(geom: Geometry, maps: List[torch.Tensor], scale: Operand,
             bias: Operand, stream) -> List[torch.Tensor]:
     """One kernel launch over every map (three at most) on ``stream``, no
@@ -457,7 +482,7 @@ def _launch_layer(geom: Geometry, maps: List[torch.Tensor],
     ``runtime_geometry`` takes the kernel with run-time indices even
     where the geometry has a fixed instantiation (to time the two).
     Returns the new output maps."""
-    global launches, prologue_launches, epilogue_launches
+    global launches, prologue_launches, epilogue_launches, relu_run_launches
     if not 1 <= len(maps) <= 3:
         raise ValueError(f"one to three maps per launch, got {len(maps)}")
     device = maps[0].device
@@ -546,6 +571,8 @@ def _launch_layer(geom: Geometry, maps: List[torch.Tensor],
                            f"{err} ({_lib.error_string(err)})")
     launches += 1
     prologue_launches += relu
+    relu_run_launches += relu and _takes_relu_run(geom, w, h, form,
+                                                  runtime_geometry)
     epilogue_launches += any(s is not None for s in skips)
     return outs
 

@@ -29,6 +29,8 @@ from test_torch_layer_kernels import (RELU_COND, RELU_TOL, _near_unit,
                                       _plain_layer_launch, kernel_route)
 
 assert kernel_route   # the fixture, imported for this module's tests
+# the fused layer's wrapper, before any test stubs it
+_LAUNCH_LAYER = tbox._launch_layer
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -503,6 +505,77 @@ def test_layer_wrapper_raises(monkeypatch):
                            ((2, 3, 8, 8), (2, 8, 8), (3, 8, 8))))
     with pytest.raises(ValueError, match="cuda tensors"):
         tlayer.conv_layer(meta, conv, True, None)
+
+
+# (map side, k, stride, padding, relu_impl, runtime_geometry): whether a
+# launch with the ReLU prologue takes the kernel's relu_run
+RELU_RUN_CASES = [
+    (28, 3, 1, "same", "fast", False, True),
+    (28, 3, 1, "same", "reference", False, False),
+    (28, 3, 1, "same", "fast", True, False),
+    (28, 7, 1, "same", "fast", False, True),     # the fit's ConvNet
+    (28, 5, 1, "same", "fast", False, False),
+    (14, 3, 2, "same", "fast", False, True),
+    (7, 3, 1, "same", "fast", False, True),
+    (32, 3, 1, "same", "fast", False, True),     # cifar10
+    (12, 3, 1, "same", "fast", False, False),
+]
+
+
+@pytest.mark.parametrize("w,k,st,pad,impl,runtime,takes", RELU_RUN_CASES)
+def test_relu_run_launches_follow_the_launch_shape(monkeypatch, w, k, st,
+                                                   pad, impl, runtime,
+                                                   takes):
+    """relu_run_launches counts a ReLU-prologue launch when its planes
+    take the kernel's relu_run: the "fast" form on a geometry of
+    FIXED_GEOMETRIES, not forced onto the run-time kernel; a launch
+    without the ReLU never counts."""
+    _no_plain(monkeypatch)
+    monkeypatch.setattr(tbox, "_lib", _FakeLayerLib())
+    assert "relu_run_launches" in tbox.COUNTERS
+    xx, yy = torch.ones(3, w, w), torch.ones(2, w, w)
+    form = tarc.PAIR_FAST if impl == "fast" else tarc.PAIR_REFERENCE
+    geom = tbox.Geometry.of(k, st, pad, 1)
+    before = (tbox.prologue_launches, tbox.relu_run_launches)
+    tbox._launch_layer(geom, [torch.zeros(3, 2, w, w), xx, yy],
+                       [tbox.RELU, tbox.HALF, tbox.HALF], [None] * 3,
+                       (xx, yy, None, form, 0), 1.0, 0.0, 0,
+                       runtime_geometry=runtime)
+    assert (tbox.prologue_launches - before[0],
+            tbox.relu_run_launches - before[1]) == (1, int(takes))
+    tbox._launch_layer(geom, [xx], [tbox.AS_IS], [None], None, 1.0, 0.0, 0,
+                       runtime_geometry=runtime)
+    assert tbox.relu_run_launches - before[1] == int(takes)
+
+
+@pytest.mark.parametrize("name,prologues,runs", [
+    ("mnist_as_tf", 28, 27), ("mnist_paper_convnet_gp", 0, 0)])
+def test_relu_run_launches_on_the_gram_call_span(monkeypatch, kernel_route,
+                                                 name, prologues, runs):
+    """A Gram call's gram.call span carries relu_run_launches with the
+    other counters: on the CUDA route (each fused launch through the real
+    wrapper, a stubbed library, then its plain forward) an mnist_as_tf
+    tile's 28 ReLU prologues take relu_run but for the last, the dense
+    1x1 readout's on 1x1 maps (a run-time geometry); the ConvNet's tiles
+    take the megakernel and launch no box filter."""
+    from cnn_gp_tpu_torch.parallel import gram_device
+    from cnn_gp_tpu_torch.utils import timing
+    stub = tbox._launch_layer
+    monkeypatch.setattr(tbox, "_lib", _FakeLayerLib())
+
+    def launch(geom, maps, pros, skips, side, scale, bias, stream):
+        _LAUNCH_LAYER(geom, maps, pros, skips, side, scale, bias, stream)
+        return stub(geom, maps, pros, skips, side, scale, bias, stream)
+    monkeypatch.setattr(tbox, "_launch_layer", launch)
+    x = torch.rand(3, 1, 28, 28, generator=torch.Generator().manual_seed(5))
+    with timing.recording() as found, torch.no_grad():
+        gram_device(configs.load(name).initial_model, x, batch_size=2,
+                    device="cpu")
+    call, = [s for s in found if s.name == "gram.call"]
+    assert call.attrs["tiles"] == 3
+    assert (call.attrs["boxfilter.prologue_launches"],
+            call.attrs["boxfilter.relu_run_launches"]) == (3 * prologues,
+                                                           3 * runs)
 
 
 @pytest.mark.parametrize("setting,value", [

@@ -91,6 +91,13 @@ def test_fixed_geometries_are_the_kernels_table():
     assert vjp - forward == {(28, 28, 1, 0, 1)}
 
 
+def test_forward_fixed_geometries_are_the_kernels_table():
+    """boxfilter.FIXED_GEOMETRIES, which relu_run_launches reads, is the
+    forward kernel's table of template instantiations."""
+    assert tbox.FIXED_GEOMETRIES == _table("boxfilter.cu",
+                                           "kFixedGeometries")
+
+
 def test_relu_sizes_are_the_kernels_sizes():
     """The map sizes with an instantiation of their own in the ReLU's
     adjoint are the squares of RELU_SIDES."""
