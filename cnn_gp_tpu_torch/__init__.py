@@ -3,8 +3,8 @@
 The same NNGP kernel DSL, Gram assembly, store and GP solve as the JAX
 package, with its module names.  Models of the paper ConvNet-GP family
 compute their Gram tiles with a hand-written CUDA kernel
-(``ops/megakernel.py``), a model with a pool with the full covariance's
-(``ops/fullcov.py``); every other model runs each ``Conv2d`` and ``ReLU``
+(``ops/megakernel.py``), a model with a pool, or the NTK of a model
+(``NTK``), with the full covariance's (``ops/fullcov.py``); every other model runs each ``Conv2d`` and ``ReLU``
 on one of its own (``csrc/boxfilter.cu``, ``csrc/arccos.cu``) and the
 rest on plain torch ops.  ``finite.py`` mirrors each kernel model as S
 random finite-width networks evaluated in one grouped forward.  This
@@ -22,8 +22,8 @@ opened.
 """
 
 from .kernel_patch import FullKernelPatch, KernelPatch
-from .kernels import (NNGPKernel, Conv2d, ReLU, AvgPool2d, Sequential, Sum,
-                      Mixture, resnet_block, kernel_fn, input_patch,
+from .kernels import (NNGPKernel, Conv2d, ReLU, AvgPool2d, NTK, Sequential,
+                      Sum, Mixture, resnet_block, kernel_fn, input_patch,
                       apply_kernel, apply_kernel_reference)
 from .finite import FiniteNet, sample_nn_outputs
 from . import settings
@@ -36,7 +36,7 @@ from .utils import print_timings
 
 __all__ = [
     "KernelPatch", "FullKernelPatch", "NNGPKernel", "Conv2d", "ReLU",
-    "AvgPool2d", "Sequential", "Sum",
+    "AvgPool2d", "NTK", "Sequential", "Sum",
     "Mixture", "resnet_block", "kernel_fn", "input_patch", "apply_kernel",
     "apply_kernel_reference", "FiniteNet", "sample_nn_outputs", "settings",
     "fit", "fit_lib", "neg_marginal_log_likelihood", "DatasetFromConfig",

@@ -14,8 +14,10 @@ Ported: every config of the repo's ``configs/``: ``synthetic``,
 even 4x4 kernel), ``mnist_as_tf`` with its 16k and 4k rehearsal splits
 ``mnist_as_tf_16k`` and ``mnist_as_tf_mini``, ``mnist`` (the default
 ``--config`` of the drivers: ResNet-32 on the 50k/10k/10k split) and
-``cifar10`` (ResNet-32 on 32x32 images, tile 350); and ``cifar10_myrtle10``
-(Myrtle-10), the full covariance's (``ops/fullcov.py``).  ``synthetic``
+``cifar10`` (ResNet-32 on 32x32 images, tile 350); and, the full
+covariance's (``ops/fullcov.py``), ``cifar10_myrtle10`` (Myrtle-10) and
+``cifar10_cntk_gap11`` (the CNTK with global average pooling at depth
+11, an ``NTK``).  ``synthetic``
 and ``mnist_paper_convnet_gp`` take the megakernel; the ResNets run on
 the fused layer kernels (``ops/layer.py``).
 """

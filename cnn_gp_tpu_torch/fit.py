@@ -79,9 +79,15 @@ MESH_NEEDS_PROBED = ("mesh= row-shards the probed path's factor; "
 
 
 def check_no_pool(model) -> None:
-    """Refuse a model with an ``AvgPool2d``: its full-covariance kernels
-    (``ops/fullcov.py``) have no adjoints, so no tiled fit takes it."""
-    from .kernels import AvgPool2d
+    """Refuse a model with an ``AvgPool2d`` or an ``NTK``: the
+    full-covariance kernels (``ops/fullcov.py``) that compute both have
+    no adjoints, so no tiled fit takes it."""
+    from .kernels import NTK, AvgPool2d
+    if any(isinstance(m, NTK) for m in model.modules()):
+        raise NotImplementedError(
+            "an NTK (its tangent field on the full-covariance recursion) has "
+            "no gradient path: the tangent kernels have no adjoints, so "
+            "nmll_value_and_grad_tiled and fit_large refuse it")
     if any(isinstance(m, AvgPool2d) for m in model.modules()):
         raise NotImplementedError(
             "a model with an AvgPool2d (the full-covariance recursion) has "

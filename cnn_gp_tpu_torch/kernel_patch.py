@@ -10,7 +10,9 @@ the ``+``/``*`` algebra that ``Sum`` and ``Mixture`` use.
 ``AvgPool2d`` needs from its input on: the cross covariance of every
 pair of positions, ``xy: [Nx, Ny, W, H, W, H]`` (diag: ``[N, W, H, W,
 H]``), and each image's own full covariance, ``xx: [Nx, W, H, W, H]``,
-``yy: [Ny, W, H, W, H]``, whose diagonals are the ReLU's variances.
+``yy: [Ny, W, H, W, H]``, whose diagonals are the ReLU's variances.  An
+NTK (``kernels.NTK``) carries the tangent field of each of the three
+beside it (``txy``, ``txx``, ``tyy``, same shapes).
 """
 
 from __future__ import annotations
@@ -109,6 +111,8 @@ class FullKernelPatch:
       xx: each row image's own covariance ``[Nx, W, H, W, H]``.
       yy: each column image's own covariance ``[Ny, W, H, W, H]``.
       same, diag, diag_mask: as ``KernelPatch``'s.
+      txy, txx, tyy: the tangent fields Theta of xy, xx and yy (an NTK's,
+        ``kernels.NTK``), or None: the NNGP alone.
     """
 
     xy: torch.Tensor
@@ -117,6 +121,9 @@ class FullKernelPatch:
     same: bool = False
     diag: bool = False
     diag_mask: Optional[torch.Tensor] = None
+    txy: Optional[torch.Tensor] = None
+    txx: Optional[torch.Tensor] = None
+    tyy: Optional[torch.Tensor] = None
 
     @property
     def nx(self) -> int:
@@ -139,3 +146,18 @@ class FullKernelPatch:
             dim1=1, dim2=2).reshape(n, w, h)
 
     resolve_diag_mask = KernelPatch.resolve_diag_mask
+
+    def with_tangent(self) -> "FullKernelPatch":
+        """The patch with tangent fields, zero where it has none (an
+        NTK's input: Theta0 = 0)."""
+        if self.txy is not None:
+            return self
+        txx = torch.zeros_like(self.xx)
+        tyy = txx if self.yy is self.xx else torch.zeros_like(self.yy)
+        return dataclasses.replace(self, txy=torch.zeros_like(self.xy),
+                                   txx=txx, tyy=tyy)
+
+    def tangent_patch(self) -> "FullKernelPatch":
+        """The tangent fields as the patch's kernel (an NTK's output)."""
+        return FullKernelPatch(self.txy, self.txx, self.tyy, self.same,
+                               self.diag, self.diag_mask)

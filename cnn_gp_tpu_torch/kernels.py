@@ -43,6 +43,11 @@ the pairs in memory-bounded chunks, on the card its CUDA kernels), and
 layer in plain torch.  Such a model takes ``Sequential``, ``Conv2d`` of
 stride 1, ``ReLU`` and ``AvgPool2d`` only; an ``AvgPool2d`` on a
 diagonal patch raises.
+
+``NTK(model)`` is the neural tangent kernel of such a model (with or
+without a pool): the same route carries a tangent field beside the
+covariance and reads the kernel from it (``ops/fullcov.py``).  No other
+route computes it: the megakernel and the layer kernels refuse it.
 """
 
 from __future__ import annotations
@@ -59,8 +64,8 @@ from .kernel_patch import FullKernelPatch, KernelPatch
 from .ops import arccos, boxfilter, fullcov, layer
 from .ops.layer import _add
 
-__all__ = ["NNGPKernel", "Conv2d", "ReLU", "AvgPool2d", "Sequential", "Sum",
-           "Mixture", "resnet_block", "kernel_fn", "input_patch",
+__all__ = ["NNGPKernel", "Conv2d", "ReLU", "AvgPool2d", "NTK", "Sequential",
+           "Sum", "Mixture", "resnet_block", "kernel_fn", "input_patch",
            "apply_kernel", "apply_kernel_reference"]
 
 
@@ -105,8 +110,8 @@ def apply_kernel(model, x: torch.Tensor, y: torch.Tensor, same: bool,
                  diag: bool, diag_mask: Optional[torch.Tensor] = None
                  ) -> torch.Tensor:
     """Kernel core on tensors that already lie on the compute device (on
-    the card: the layer kernels; for a model with a pool, the
-    full-covariance kernels)."""
+    the card: the layer kernels; for a model with a pool or an ``NTK``,
+    the full-covariance kernels)."""
     if x.is_cuda:
         settings.check_precision()
     spec = fullcov.match(model)
@@ -346,6 +351,36 @@ class AvgPool2d(NNGPKernel):
 
     def layers(self):
         return 0
+
+
+class NTK(NNGPKernel):
+    """The neural tangent kernel of ``model`` (a ``Sequential`` of
+    ``Conv2d`` of stride 1, ``ReLU`` and ``AvgPool2d``) in the NTK
+    parameterization (Arora et al., "On Exact Computation with an
+    Infinitely Wide Neural Net", 2019, section 4): beside the covariance
+    K each pair carries the tangent Theta over every pair of positions,
+    0 at the input; a conv maps it as it maps K, without the bias, and
+    adds the new K; a ReLU scales it by (pi - theta) / (2 pi) of the
+    angle of K; a pool averages it.  The kernel is the last Theta.  It
+    needs the full-covariance patch, so ``kernel_fn`` and
+    ``apply_kernel`` route it through ``ops/fullcov.py`` whether or not
+    the model pools; the tiled fit refuses it (no adjoints)."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def propagate(self, kp, reference: bool = False):
+        if not isinstance(kp, FullKernelPatch):
+            raise ValueError(
+                "an NTK carries its tangent on the full covariance "
+                "(FullKernelPatch); kernel_fn and apply_kernel route it "
+                "through ops/fullcov.py")
+        return self.model.propagate(kp.with_tangent(),
+                                    reference).tangent_patch()
+
+    def layers(self):
+        return self.model.layers()
 
 
 class Sequential(NNGPKernel):

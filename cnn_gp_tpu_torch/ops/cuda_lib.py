@@ -115,7 +115,8 @@ _TEMPLATE = re.compile(r"I((?:Li\d+E)+)E")
 _KERNELS = ("pair_kernel_generic", "pair_kernel", "diag_maps_kernel",
             "diag_maps_fixed", "cov_conv_kernel", "cov_pool_kernel",
             "box_layer_staged", "box_layer_unstaged", "relu_kernel",
-            "box_vjp_kernel", "relu_vjp_pair", "relu_vjp_diagonal")
+            "box_vjp_kernel", "relu_vjp_pair", "relu_vjp_diagonal",
+            "cov_ntk_conv_kernel", "cov_ntk_pool_kernel")
 
 
 def ptxas_report(log: str) -> List[dict]:

@@ -17,6 +17,25 @@ l)); with C channels
 Under conv and ReLU each plane of fixed offset q - p evolves on its own;
 only a pool mixes planes.  Nothing is truncated: every offset is kept.
 
+An ``NTK`` of such a model (``kernels.NTK``; the neural tangent kernel
+in the NTK parameterization, Arora et al. 2019, section 4) carries a
+second field over the same pairs of positions, the tangent Theta(p, q),
+and reads it out instead of K:
+
+    input:  Theta0 = 0
+    conv:   Theta'(p, q) = (var_weight / k^2) sum_d Theta(p + d - lo,
+                           q + d - lo) + K'(p, q)
+    ReLU:   Theta'(p, q) = Theta(p, q) (pi - theta) / (2 pi),  cos theta
+                           = K(p, q) / sqrt(Kxx(p, p) Kyy(q, q)), clamped
+    pool:   Theta averaged over k x k blocks, as K is
+
+Until the first conv Theta is 0, and after a conv whose input Theta was
+0 it equals K, so the plan's ops (``Op.tangent``) carry no tangent field
+there (0), read K as their input tangent (``SIGMA``), or read their own
+(``FIELD``), and write both fields once they carry one; an NTK of a model
+without a pool takes this path too (the diagonal recursion has no
+tangent).
+
 The model (a ``Sequential`` of ``Conv2d``, ``ReLU`` and ``AvgPool2d``,
 ``match``) becomes a plan of ops (``plan``), each a conv or a pool whose
 input passes through a prologue first: the channel moments of the images
@@ -52,6 +71,18 @@ launch; its plain version runs on CPU tensors only.  ``conv_launches``
 and ``pool_launches`` count the launches, ``conv_walk_launches`` the
 convs that took the warp walk.
 
+The ops that carry a tangent field run ``cov_ntk_conv_kernel`` (a 3x3
+"same" conv on square maps of a side in ``WALK_MAPS``, on a two-field
+warp walk: both fields' running sums in registers, the ReLU's K-dot
+(pi - theta) / (2 pi) from the same theta as its K; or a 1x1 conv,
+elementwise) and ``cov_ntk_pool_kernel`` (one thread an output, or, for
+a global average of maps of an even side of 4 or more, one block a pair
+reducing both fields: each thread sums its float4 groups in order, then
+a shuffle tree a warp and the warps' sums in order,
+``ntk_pool_reference`` step for step); ``ntk_conv_launches`` and
+``ntk_pool_launches`` count them.  On CUDA tensors a tangent op those
+kernels do not take raises ``NotImplementedError`` before any launch.
+
 The ReLU (``relu_xy``, on both routes) is the arccos map of
 ``ops/arccos.py`` in its "fast" form, each variance map's factors
 ``rsqrt(v + tiny)`` and ``sqrt(v + tiny)`` computed once per image
@@ -81,12 +112,16 @@ __all__ = ["FullSpec", "Op", "match", "plan", "SelfMaps", "self_maps",
            "pool_reference", "prologue_reference", "relu_xy", "factors",
            "patch_conv", "patch_pool", "patch_relu", "CHUNK_BYTES", "build",
            "conv_launches", "pool_launches", "conv_walk_launches",
-           "WALK_MAPS", "WALK_CHANNELS", "COUNTERS"]
+           "ntk_conv_launches", "ntk_pool_launches", "relu_ntk",
+           "ntk_pool_reference", "WALK_MAPS", "WALK_CHANNELS", "COUNTERS"]
 
 conv_launches = 0   # cov_conv_kernel launches
 pool_launches = 0   # cov_pool_kernel launches
 conv_walk_launches = 0   # of those, the warp walk's
-COUNTERS = ("conv_launches", "pool_launches", "conv_walk_launches")
+ntk_conv_launches = 0   # cov_ntk_conv_kernel launches
+ntk_pool_launches = 0   # cov_ntk_pool_kernel launches
+COUNTERS = ("conv_launches", "pool_launches", "conv_walk_launches",
+            "ntk_conv_launches", "ntk_pool_launches")
 _lib = None
 
 # the most bytes of one chunk's input and output fields (a 64 x 64 tile
@@ -99,13 +134,24 @@ NONE, RELU, MOMENTS = 0, 1, 2      # prologues (csrc/fullcov.cu)
 # (the kernel has it for 32, 16 and 8), and the moments' channels it takes
 WALK_MAPS = (32, 16, 8)
 WALK_CHANNELS = 3
+# an op's tangent input (Op.tangent): none carried (0), the op's input K
+# (SIGMA), or its own field (FIELD)
+SIGMA, FIELD = 1, 2
+POOL_THREADS = 256   # cov_ntk_pool_kernel's block (a global average's)
 
 
 class FullSpec(NamedTuple):
     """The model's layers as ("conv", k, lo, hi, var_weight, var_bias),
-    ("relu",) and ("pool", k), in order; a snapshot of learnable leaves.
-    Its methods: the route of ``parallel.gram.tile_spec``, on SelfMaps."""
+    ("relu",) and ("pool", k), in order; a snapshot of learnable leaves;
+    ``ntk``: the model's NTK (``kernels.NTK``), read from its tangent
+    field.  Its methods: the route of ``parallel.gram.tile_spec``, on
+    SelfMaps."""
     layers: Tuple[tuple, ...]
+    ntk: bool = False
+
+    @property
+    def fields(self) -> int:      # fields a pair carries: K, and Theta
+        return 2 if self.ntk else 1
 
     def maps(self, x: torch.Tensor) -> "SelfMaps":
         return self_maps(self, x)
@@ -136,6 +182,7 @@ class Op(NamedTuple):
     h: int
     wo: int
     ho: int
+    tangent: int = 0   # its tangent input: none (0), SIGMA or FIELD
 
 
 def _value(v) -> float:
@@ -150,7 +197,8 @@ def _flat(model) -> list:
         return [model]
     raise ValueError(
         f"the full-covariance path takes a Sequential of Conv2d, ReLU and "
-        f"AvgPool2d; {type(model).__name__} is not one of them")
+        f"AvgPool2d (or the NTK of one); {type(model).__name__} is not one "
+        f"of them")
 
 
 def _has_pool(model) -> bool:
@@ -160,13 +208,20 @@ def _has_pool(model) -> bool:
 
 def match(model) -> Optional[FullSpec]:
     """The model's FullSpec if it holds an ``AvgPool2d`` (and so needs the
-    full covariance), else None.  Raises on a pooled model this path does
-    not take (a ``Sum``, a ``Mixture``, a strided or dilated conv)."""
-    from ..kernels import AvgPool2d, Conv2d
-    if not _has_pool(model):
+    full covariance) or is an ``NTK`` (whose tangent field only this path
+    carries), else None.  Raises on such a model this path does not take
+    (a ``Sum``, a ``Mixture``, a strided or dilated conv, an ``NTK``
+    inside a model)."""
+    from ..kernels import NTK, AvgPool2d, Conv2d
+    ntk = isinstance(model, NTK)
+    inner = model.model if ntk else model
+    if any(isinstance(m, NTK) for m in inner.modules()):
+        raise ValueError("an NTK wraps a whole model: the full-covariance "
+                         "path reads its tangent field at the readout")
+    if not ntk and not _has_pool(model):
         return None
     layers = []
-    for m in _flat(model):
+    for m in _flat(inner):
         if isinstance(m, Conv2d):
             if m.stride != 1 or m.dilation != 1:
                 raise ValueError("the full-covariance path takes Conv2d of "
@@ -178,7 +233,7 @@ def match(model) -> Optional[FullSpec]:
             layers.append(("pool", m.kernel_size))
         else:
             layers.append(("relu",))
-    return FullSpec(tuple(layers))
+    return FullSpec(tuple(layers), ntk)
 
 
 def _f32(v: float) -> float:
@@ -188,14 +243,25 @@ def _f32(v: float) -> float:
 def plan(spec: FullSpec, w: int, h: int) -> List[Op]:
     """The launches that take [w, h] maps through the model, each ReLU
     fused into the prologue of the op that reads it; raises unless the
-    last map is 1 x 1."""
+    last map is 1 x 1.  For an NTK each op's ``tangent`` says what
+    tangent it reads: none while Theta is 0 or equals the op's input K
+    and the op keeps it so (Theta 0 until the first conv, K after it
+    until a ReLU), else K (``SIGMA``) or its own field (``FIELD``)."""
     ops: List[Op] = []
     pending, relus = MOMENTS, 0
+    state = 0       # Theta: 0, K (SIGMA) or a field (FIELD); NNGP: 0
 
     def emit(kind, k, lo, scale, bias, wo, ho):
-        nonlocal pending, relus, w, h
+        nonlocal pending, relus, w, h, state
         relu = relus - 1 if pending == RELU else -1
-        ops.append(Op(kind, k, lo, scale, bias, pending, relu, w, h, wo, ho))
+        tangent = 0
+        if spec.ntk and kind == "conv":
+            tangent, state = state, SIGMA if state == 0 else FIELD
+        elif spec.ntk and (state == FIELD or
+                           (state == SIGMA and pending == RELU)):
+            tangent, state = state, FIELD
+        ops.append(Op(kind, k, lo, scale, bias, pending, relu, w, h, wo, ho,
+                      tangent))
         pending, w, h = NONE, wo, ho
 
     for layer in spec.layers:
@@ -247,6 +313,18 @@ def relu_xy(xy: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor
     c = torch.clamp(xy * (fx[..., 0] * fy[..., 0]), -1.0, 1.0)
     s = (fx[..., 1] * fy[..., 1]) * _sqrt_rn((1.0 - c) * (1.0 + c))
     return (s + (math.pi - _acos()(c)) * xy) * (0.5 / math.pi)
+
+
+def relu_ntk(xy: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``relu_xy`` of ``xy`` (the same bits) and its K-dot, ``(pi -
+    acos(c)) / (2 pi)`` of the same clamped cosine c, by which an NTK's
+    ReLU scales the tangent (``csrc/fullcov.cu``'s ``relu_ntk``, op for
+    op)."""
+    c = torch.clamp(xy * (fx[..., 0] * fy[..., 0]), -1.0, 1.0)
+    s = (fx[..., 1] * fy[..., 1]) * _sqrt_rn((1.0 - c) * (1.0 + c))
+    pt = math.pi - _acos()(c)
+    return (s + pt * xy) * (0.5 / math.pi), pt * (0.5 / math.pi)
 
 
 def _zipped(v: torch.Tensor, zip_: bool, side: int):
@@ -322,6 +400,77 @@ def _op_reference(op: Op, src, x, y, vx, vy, zip_: bool) -> torch.Tensor:
     return pool_reference(r, op.k, op.wo, op.ho, op.scale)
 
 
+def _blocked(k: int, w: int, h: int, wo: int, ho: int) -> bool:
+    """Whether a tangent op's pool is a global average that
+    ``cov_ntk_pool_kernel`` reduces with one block a pair: k the whole
+    square map, of an even side of 4 or more (its field then splits
+    into float4 groups)."""
+    return (wo, ho) == (1, 1) and k == w == h and k >= 4 and k % 2 == 0
+
+
+def _block_sum(r: torch.Tensor) -> torch.Tensor:
+    """The sum over the last dim of ``r`` [..., n] (n a multiple of 4) as
+    ``cov_ntk_pool_kernel``'s block of ``POOL_THREADS`` adds it: thread t
+    takes the float4 groups t, t + 256, ... and adds their entries in
+    order to its 0, each warp's 32 sums fold by halves (lane l + off onto
+    l, off 16 down to 1), and the 8 warps' sums are added in order."""
+    lead, n = r.shape[:-1], r.shape[-1]
+    groups = n // 4
+    steps = -(-groups // POOL_THREADS)
+    g = torch.nn.functional.pad(r.reshape(*lead, groups, 4),
+                                (0, 0, 0, steps * POOL_THREADS - groups))
+    g = g.reshape(*lead, steps, POOL_THREADS, 4)
+    acc = torch.zeros((*lead, POOL_THREADS), dtype=r.dtype, device=r.device)
+    for i in range(steps):
+        for q in range(4):
+            acc = acc + g[..., i, :, q]
+    acc = acc.reshape(*lead, POOL_THREADS // 32, 32)
+    off = 16
+    while off:
+        acc = acc[..., :off] + acc[..., off:2 * off]
+        off //= 2
+    acc = acc[..., 0]
+    total = acc[..., 0]
+    for wp in range(1, POOL_THREADS // 32):
+        total = total + acc[..., wp]
+    return total
+
+
+def ntk_pool_reference(r: torch.Tensor, k: int, wo: int, ho: int,
+                       scale: float) -> torch.Tensor:
+    """A tangent op's k x k block pool of fields r [..., W, H, W, H]: a
+    global average (``_blocked``) summed in ``cov_ntk_pool_kernel``'s
+    block order (``_block_sum``) and scaled, any other pool
+    ``pool_reference``'s."""
+    w, h = r.shape[-4], r.shape[-3]
+    if not _blocked(k, w, h, wo, ho):
+        return pool_reference(r, k, wo, ho, scale)
+    lead = r.shape[:-4]
+    return (_block_sum(r.reshape(*lead, -1)) * scale).reshape(
+        *lead, 1, 1, 1, 1)
+
+
+def _ntk_op_reference(op: Op, src, tsrc, vx, vy, zip_: bool
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A tangent op's (K', Theta') from its input K ``src`` and tangent
+    ``tsrc`` (None: the tangent is ``src``): the prologue (the ReLU's K
+    and K-dot times the tangent, or both fields as they are), then a
+    conv (Theta' the box sum of the tangent, scaled, plus K') or a pool
+    of both."""
+    t = src if tsrc is None else tsrc
+    if op.prologue == RELU:
+        r, kdot = relu_ntk(src, _zipped(vx, zip_, 0), _zipped(vy, zip_, 1))
+        t = t * kdot
+    else:
+        r = src
+    if op.kind == "conv":
+        out = conv_reference(r, op.k, op.lo, op.wo, op.ho, op.scale, op.bias)
+        return out, conv_reference(t, op.k, op.lo, op.wo, op.ho, op.scale,
+                                   out)
+    return (ntk_pool_reference(r, op.k, op.wo, op.ho, op.scale),
+            ntk_pool_reference(t, op.k, op.wo, op.ho, op.scale))
+
+
 # -- the CUDA route -------------------------------------------------------
 
 def build() -> float:
@@ -338,6 +487,13 @@ def build() -> float:
     for fn, ints in ((lib.cnn_gp_cov_conv, 2), (lib.cnn_gp_cov_pool, 1)):
         fn.argtypes = head + [ctypes.c_int] * ints + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    # the tangent ops: src, tsrc, out, tout, fx, fy, then as above less
+    # the images' channels
+    for fn in (lib.cnn_gp_cov_ntk_conv, lib.cnn_gp_cov_ntk_pool):
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+                       + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     lib.cnn_gp_cov_check.argtypes = [ctypes.c_int, ctypes.c_uint,
                                      ctypes.c_uint, ctypes.c_void_p,
                                      ctypes.c_int, ctypes.c_void_p]
@@ -346,6 +502,7 @@ def build() -> float:
     lib.cnn_gp_cov_error_string.restype = ctypes.c_char_p
     _lib = types.SimpleNamespace(
         conv=lib.cnn_gp_cov_conv, pool=lib.cnn_gp_cov_pool,
+        ntk_conv=lib.cnn_gp_cov_ntk_conv, ntk_pool=lib.cnn_gp_cov_ntk_pool,
         check=lib.cnn_gp_cov_check,
         error_string=lambda code: lib.cnn_gp_cov_error_string(
             code).decode())
@@ -353,10 +510,20 @@ def build() -> float:
 
 
 def _kernel_takes(op: Op) -> bool:
+    """Whether the kernels take ``op``: any pool; a tangent op's conv a
+    3x3 "same" one on square maps of a side in ``WALK_MAPS`` (the
+    two-field warp walk) or a 1x1 one (elementwise); any other conv of
+    odd k up to ``MAX_CONV_K``, "same", on maps up to ``MAX_CONV_H``
+    along H."""
     if op.kind == "pool":
         return True
+    same = (op.wo, op.ho) == (op.w, op.h)
+    if op.tangent:
+        return same and ((op.k == 3 and op.lo == 1 and op.w == op.h
+                          and op.h in WALK_MAPS)
+                         or (op.k == 1 and op.lo == 0))
     return op.k % 2 == 1 and op.k <= MAX_CONV_K and op.lo == op.k // 2 \
-        and (op.wo, op.ho) == (op.w, op.h) and op.h <= MAX_CONV_H
+        and same and op.h <= MAX_CONV_H
 
 
 def _takes_walk(op: Op, channels: int) -> bool:
@@ -373,7 +540,13 @@ def _takes_walk(op: Op, channels: int) -> bool:
 def _count(op: Op, walk: bool) -> None:
     """Count one launch of ``op``'s kernel (``walk``: on the warp walk)."""
     global conv_launches, pool_launches, conv_walk_launches
-    if op.kind == "conv":
+    global ntk_conv_launches, ntk_pool_launches
+    if op.tangent:
+        if op.kind == "conv":
+            ntk_conv_launches += 1
+        else:
+            ntk_pool_launches += 1
+    elif op.kind == "conv":
         conv_launches += 1
         conv_walk_launches += walk
     else:
@@ -410,6 +583,34 @@ def _launch(op: Op, src, x, y, vx, vy, zip_: bool, a: int, b: int,
     return out
 
 
+def _launch_ntk(op: Op, src, tsrc, vx, vy, zip_: bool, a: int, b: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of a tangent op's kernel on ``a`` x ``b`` pairs
+    (zipped: ``a`` pairs, b = 1); returns the [a, b, Wo, Ho, Wo, Ho]
+    fields K' and Theta'.  ``tsrc`` None: the tangent is ``src``."""
+    from .. import settings
+    dev = src.device
+    shape = (a, b, op.wo, op.ho, op.wo, op.ho)
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
+    tout = torch.empty(shape, dtype=torch.float32, device=dev)
+    src, tsrc, vx, vy = (None if t is None else t.contiguous()
+                         for t in (src, tsrc, vx, vy))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    fn = _lib.ntk_conv if op.kind == "conv" else _lib.ntk_pool
+    err = fn(ptr(src), ptr(tsrc), out.data_ptr(), tout.data_ptr(), ptr(vx),
+             ptr(vy), a * b, 1 if zip_ else b, int(zip_), op.w, op.h, op.k,
+             op.lo, op.wo, op.ho, op.scale, op.bias, op.prologue,
+             int(settings.acos_impl != "poly"), dev.index,
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"tangent {op.kind} kernel launch failed: cuda "
+                           f"error {err} ({_lib.error_string(err)})")
+    _count(op, False)
+    return out, tout
+
+
 def _mismatches(which: str, lo: int, hi: int, device) -> int:
     """How many float32 bit patterns in [lo, hi] the warp walk's rounding
     without a branch (``csrc/fullcov.cu``: ``"sqrt"``, ``sqrt_unit``;
@@ -437,6 +638,13 @@ def _check_card(ops: List[Op]) -> None:
     """Raise ``NotImplementedError`` naming the first op of ``ops`` that
     the kernels do not take."""
     for op in ops:
+        if op.tangent and not _kernel_takes(op):
+            raise NotImplementedError(
+                f"the tangent kernels take a 3x3 conv with padding 1 on "
+                f"square maps of a side in {WALK_MAPS} and a 1x1 conv with "
+                f"padding 0; this NTK's {op.k}x{op.k} conv with padding "
+                f"{op.lo} on {op.w}x{op.h} maps is not one (its plain "
+                f"version runs on CPU tensors)")
         if not _kernel_takes(op):
             raise NotImplementedError(
                 f"the full-covariance conv kernel takes an odd k <= "
@@ -456,6 +664,14 @@ def _run_op(op: Op, src, x, y, vx, vy, zip_: bool) -> torch.Tensor:
     return _op_reference(op, src, x, y, vx, vy, zip_)
 
 
+def _run_ntk_op(op: Op, src, tsrc, vx, vy, zip_: bool, a: int, b: int):
+    """A tangent op on fields [A, B, ...]: (K', Theta')."""
+    if _on_card(src):
+        build()
+        return _launch_ntk(op, src, tsrc, vx, vy, zip_, a, b)
+    return _ntk_op_reference(op, src, tsrc, vx, vy, zip_)
+
+
 def _diagonal(f: torch.Tensor) -> torch.Tensor:
     """K(p, p) of zipped fields [A, 1, W, H, W, H], as [A, W, H]."""
     a, _, w, h = f.shape[:4]
@@ -463,12 +679,15 @@ def _diagonal(f: torch.Tensor) -> torch.Tensor:
         a, w, h).contiguous()
 
 
-def _walk(ops: List[Op], x, y, zip_: bool, mx, my, record=None):
+def _walk(ops: List[Op], x, y, zip_: bool, mx, my, record=None,
+          ntk: bool = False):
     """The plan on x's rows against y's (zipped or every pair): the
-    readout [A, B] (zipped [A]).  ``mx`` / ``my`` are the factor maps
-    per ReLU; None (the pre-pass, y is x, zipped) takes them from each
-    field's own diagonal and appends them to ``record``."""
-    f = None
+    readout [A, B] (zipped [A]), an NTK's (``ntk``) from its tangent.
+    ``mx`` / ``my`` are the factor maps per ReLU; None (the pre-pass, y
+    is x, zipped) takes them from each field's own diagonal and appends
+    them to ``record``."""
+    f = t = None
+    a, b = x.shape[0], 1 if zip_ else y.shape[0]
     for op in ops:
         vx = vy = None
         if op.prologue == RELU:
@@ -477,14 +696,23 @@ def _walk(ops: List[Op], x, y, zip_: bool, mx, my, record=None):
                 record.append(vx)
             else:
                 vx, vy = mx[op.relu], my[op.relu]
-        f = _run_op(op, f, x, y, vx, vy, zip_)
+        if op.tangent:
+            f, t = _run_ntk_op(op, f, t, vx, vy, zip_, a, b)
+        else:
+            f = _run_op(op, f, x, y, vx, vy, zip_)
+    if ntk and t is not None:
+        f = t
+    elif ntk and not any(op.kind == "conv" for op in ops):
+        f = torch.zeros_like(f)        # Theta stays 0 without a conv
     return f.reshape(f.shape[0]) if zip_ else f.reshape(f.shape[:2])
 
 
 def _chunk_rows(ops: List[Op], cols: int, budget: int) -> int:
     """Rows of a chunk: its largest input and output fields together
-    under ``budget`` bytes."""
-    per_pair = max(4 * ((op.w * op.h) ** 2 + (op.wo * op.ho) ** 2)
+    under ``budget`` bytes (a tangent op reads one or two fields and
+    writes two)."""
+    per_pair = max(4 * ((1 + (op.tangent == FIELD)) * (op.w * op.h) ** 2
+                        + (1 + (op.tangent > 0)) * (op.wo * op.ho) ** 2)
                    for op in ops)
     return max(1, budget // (per_pair * max(cols, 1)))
 
@@ -527,7 +755,8 @@ def self_maps(spec: FullSpec, x: torch.Tensor,
     for i0 in range(0, len(x), step):
         xs = x[i0:i0 + step]
         record: List[torch.Tensor] = []
-        outs.append(_walk(ops, xs, xs, True, None, None, record))
+        outs.append(_walk(ops, xs, xs, True, None, None, record,
+                          spec.ntk))
         parts.append(record)
     if not parts:
         return SelfMaps([], x.new_empty((0,)))
@@ -549,7 +778,7 @@ def pair_tile(spec: FullSpec, x: torch.Tensor, z: torch.Tensor,
     for i0 in range(0, len(x), step):
         rows = mx.rows(i0, step)
         out[i0:i0 + step] = _walk(ops, x[i0:i0 + step], z, False,
-                                  rows.factors, mz.factors)
+                                  rows.factors, mz.factors, ntk=spec.ntk)
     if mask is not None:
         out = torch.where(mask, mx.readout[:, None].expand_as(out), out)
     return out
@@ -565,7 +794,8 @@ def diag_pairs(spec: FullSpec, x: torch.Tensor, z: torch.Tensor,
     for i0 in range(0, len(x), step):
         out[i0:i0 + step] = _walk(
             ops, x[i0:i0 + step], z[i0:i0 + step], True,
-            mx.rows(i0, step).factors, mz.rows(i0, step).factors)
+            mx.rows(i0, step).factors, mz.rows(i0, step).factors,
+            ntk=spec.ntk)
     return out
 
 
@@ -591,51 +821,73 @@ def apply(spec: FullSpec, x: torch.Tensor, y: torch.Tensor, same: bool,
 
 # -- whole patches, layer by layer (the DSL's propagate) ------------------
 
-def _patch_fields(kp, fn):
+def _patch_fields(kp, fn, tfn):
+    """``fn`` of each field of K; with tangent fields, ``tfn(theta, k)``
+    of each of them beside the new K of its place."""
     from ..kernel_patch import FullKernelPatch
     xx = fn(kp.xx)
     yy = xx if kp.yy is kp.xx else fn(kp.yy)
-    return FullKernelPatch(fn(kp.xy), xx, yy, kp.same, kp.diag,
-                           kp.diag_mask)
+    xy = fn(kp.xy)
+    if kp.txy is None:
+        return FullKernelPatch(xy, xx, yy, kp.same, kp.diag, kp.diag_mask)
+    txx = tfn(kp.txx, xx)
+    tyy = txx if kp.tyy is kp.txx else tfn(kp.tyy, yy)
+    return FullKernelPatch(xy, xx, yy, kp.same, kp.diag, kp.diag_mask,
+                           tfn(kp.txy, xy), txx, tyy)
 
 
 def patch_conv(kp, k: int, lo: int, hi: int, var_weight: float,
                var_bias: float):
     """A ``Conv2d`` of stride 1 and dilation 1 on every field of a
-    ``FullKernelPatch``, in plain torch."""
+    ``FullKernelPatch``, in plain torch; a tangent field's box sum,
+    scaled, plus the new K."""
     w, h = kp.xx.shape[1:3]
     wo, ho = w + lo + hi - k + 1, h + lo + hi - k + 1
     scale, bias = _f32(var_weight) / (k * k), _f32(var_bias)
-    return _patch_fields(kp, lambda f: conv_reference(f, k, lo, wo, ho,
-                                                      scale, bias))
+    return _patch_fields(
+        kp, lambda f: conv_reference(f, k, lo, wo, ho, scale, bias),
+        lambda t, f: conv_reference(t, k, lo, wo, ho, scale, f))
 
 
 def patch_pool(kp, k: int):
-    """An ``AvgPool2d`` of k x k blocks on every field, in plain torch."""
+    """An ``AvgPool2d`` of k x k blocks on every field, in plain torch
+    (with tangent fields, as a tangent op sums: ``ntk_pool_reference``)."""
     w, h = kp.xx.shape[1:3]
-    return _patch_fields(kp, lambda f: pool_reference(f, k, w // k, h // k,
-                                                      1.0 / k ** 4))
+    pool = pool_reference if kp.txy is None else ntk_pool_reference
+    return _patch_fields(
+        kp, lambda f: pool(f, k, w // k, h // k, 1.0 / k ** 4),
+        lambda t, f: pool(t, k, w // k, h // k, 1.0 / k ** 4))
 
 
 def patch_relu(kp):
     """The arccos ReLU on every field, each image's variances the
-    diagonal of its own covariance; where the mask marks the same image
-    the pair's field is the row image's own, as after every layer."""
+    diagonal of its own covariance, a tangent field times the K-dot of
+    its place; where the mask marks the same image the pair's fields
+    are the row image's own, as after every layer."""
     from ..kernel_patch import FullKernelPatch
     fx = factors(FullKernelPatch.variances(kp.xx))
     fy = (fx if kp.yy is kp.xx
           else factors(FullKernelPatch.variances(kp.yy)))
+    tangent = kp.txy is not None
 
-    def own(f, v):
-        return relu_xy(f, v[:, :, :, None, None], v[:, None, None])
-    xx = own(kp.xx, fx)
-    yy = xx if kp.yy is kp.xx else own(kp.yy, fy)
+    def relu(f, t, vx, vy):
+        r, kdot = relu_ntk(f, vx, vy)
+        return r, (t * kdot if tangent else None)
+    xx, txx = relu(kp.xx, kp.txx, fx[:, :, :, None, None], fx[:, None, None])
+    yy, tyy = (xx, txx) if kp.yy is kp.xx else relu(
+        kp.yy, kp.tyy, fy[:, :, :, None, None], fy[:, None, None])
     if kp.diag:
-        xy = relu_xy(kp.xy, fx[:, :, :, None, None], fy[:, None, None])
-        return FullKernelPatch(xy, xx, yy, kp.same, kp.diag)
-    xy = relu_xy(kp.xy, _zipped(fx, False, 0), _zipped(fy, False, 1))
+        xy, txy = relu(kp.xy, kp.txy, fx[:, :, :, None, None],
+                       fy[:, None, None])
+        return FullKernelPatch(xy, xx, yy, kp.same, kp.diag, None, txy, txx,
+                               tyy)
+    xy, txy = relu(kp.xy, kp.txy, _zipped(fx, False, 0),
+                   _zipped(fy, False, 1))
     mask = kp.resolve_diag_mask()
     if mask is not None:
-        xy = torch.where(mask[:, :, None, None, None, None],
-                         xx[:, None].expand_as(xy), xy)
-    return FullKernelPatch(xy, xx, yy, kp.same, kp.diag, kp.diag_mask)
+        m = mask[:, :, None, None, None, None]
+        xy = torch.where(m, xx[:, None].expand_as(xy), xy)
+        if tangent:
+            txy = torch.where(m, txx[:, None].expand_as(txy), txy)
+    return FullKernelPatch(xy, xx, yy, kp.same, kp.diag, kp.diag_mask, txy,
+                           txx, tyy)

@@ -99,6 +99,10 @@ class MegaSpec(NamedTuple):
     def sizes(self, m: torch.Tensor) -> str:
         return "/".join([f"{m.shape[2]}x{m.shape[3]}"] * len(m))
 
+    @property
+    def fields(self) -> int:      # fields a pair carries: the covariance
+        return 1
+
 
 def match(model) -> Optional[MegaSpec]:
     """Return a MegaSpec if ``model`` is in the fusable ConvNet-GP family

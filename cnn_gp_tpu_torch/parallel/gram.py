@@ -68,8 +68,9 @@ def call_span(entry: str, n1: int, n2: int, b: int):
 def tile_spec(model):
     """The one choice of a Gram tile's route: the megakernel's spec
     (``megakernel.match``), the full covariance's for a model with a pool
-    (``fullcov.match``), or None (``apply_kernel`` per tile).  A spec's
-    ``maps``, ``rows``, ``tile``, ``readout`` and ``sizes`` are the route;
+    (``fullcov.match``: also an ``NTK``'s), or None (``apply_kernel`` per
+    tile).  A spec's ``maps``, ``rows``, ``tile``, ``readout``, ``sizes``
+    and ``fields`` (1, or 2 with an NTK's tangent) are the route;
     only its module knows how its maps are laid out."""
     spec = megakernel.match(model)
     return spec if spec is not None else fullcov.match(model)
@@ -87,7 +88,8 @@ def set_maps(spec, x_all, z_all=None):
         sets = [x_all] if z_all is None or z_all is x_all else [x_all, z_all]
         maps = [spec.maps(x) for x in sets]
         s.set(sets=len(sets), images=sum(len(x) for x in sets),
-              maps=spec.sizes(maps[0]), bytes=sum(m.nbytes for m in maps))
+              maps=spec.sizes(maps[0]), fields=spec.fields,
+              bytes=sum(m.nbytes for m in maps))
     return maps[0], maps[-1]
 
 
