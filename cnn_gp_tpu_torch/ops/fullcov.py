@@ -64,12 +64,18 @@ slab prefetched into shared memory, the taps
 by shuffles and the running sums in registers, any other conv the slab
 walk, one block per pair and offset diagonal behind a block barrier a
 slab; both give the same bits) and the block pool with the prologue
-(``cov_pool_kernel``).  On CUDA tensors a model with a conv the kernel
-does not take (an even or wider than 7 kernel, padding other than k //
-2, maps past 32 along H) raises ``NotImplementedError`` before any
-launch; its plain version runs on CPU tensors only.  ``conv_launches``
-and ``pool_launches`` count the launches, ``conv_walk_launches`` the
-convs that took the warp walk.
+(``cov_pool_kernel``: a 2x2 pool on square maps of a side in
+``POOL_WALK_MAPS``, its prologue the ReLU or none, takes the pool walk,
+a group of lanes per pair and position of x's side reading its four
+input planes once by 16-byte loads, the side factors in registers and
+the ReLU's roots branch-free; any other pool, the k = 1 identity pool
+among them, one thread an output; both give the same bits).  On CUDA
+tensors a model with a conv the kernel does not take (an even or wider
+than 7 kernel, padding other than k // 2, maps past 32 along H) raises
+``NotImplementedError`` before any launch; its plain version runs on
+CPU tensors only.  ``conv_launches`` and ``pool_launches`` count the
+launches, ``conv_walk_launches`` the convs that took the warp walk and
+``pool_walk_launches`` the pools that took the pool walk.
 
 The ops that carry a tangent field run ``cov_ntk_conv_kernel`` (a 3x3
 "same" conv on square maps of a side in ``WALK_MAPS``, on a two-field
@@ -113,15 +119,17 @@ __all__ = ["FullSpec", "Op", "match", "plan", "SelfMaps", "self_maps",
            "patch_conv", "patch_pool", "patch_relu", "CHUNK_BYTES", "build",
            "conv_launches", "pool_launches", "conv_walk_launches",
            "ntk_conv_launches", "ntk_pool_launches", "relu_ntk",
-           "ntk_pool_reference", "WALK_MAPS", "WALK_CHANNELS", "COUNTERS"]
+           "ntk_pool_reference", "WALK_MAPS", "WALK_CHANNELS",
+           "POOL_WALK_MAPS", "pool_walk_launches", "COUNTERS"]
 
 conv_launches = 0   # cov_conv_kernel launches
 pool_launches = 0   # cov_pool_kernel launches
 conv_walk_launches = 0   # of those, the warp walk's
+pool_walk_launches = 0   # cov_pool_kernel launches on the pool walk
 ntk_conv_launches = 0   # cov_ntk_conv_kernel launches
 ntk_pool_launches = 0   # cov_ntk_pool_kernel launches
 COUNTERS = ("conv_launches", "pool_launches", "conv_walk_launches",
-            "ntk_conv_launches", "ntk_pool_launches")
+            "pool_walk_launches", "ntk_conv_launches", "ntk_pool_launches")
 _lib = None
 
 # the most bytes of one chunk's input and output fields (a 64 x 64 tile
@@ -134,6 +142,9 @@ NONE, RELU, MOMENTS = 0, 1, 2      # prologues (csrc/fullcov.cu)
 # (the kernel has it for 32, 16 and 8), and the moments' channels it takes
 WALK_MAPS = (32, 16, 8)
 WALK_CHANNELS = 3
+# map sides whose 2x2 pools on square maps (the ReLU's prologue or none)
+# take cov_pool_kernel's pool walk
+POOL_WALK_MAPS = (32, 16, 8)
 # an op's tangent input (Op.tangent): none carried (0), the op's input K
 # (SIGMA), or its own field (FIELD)
 SIGMA, FIELD = 1, 2
@@ -483,9 +494,9 @@ def build() -> float:
     lib = cuda_lib.library("fullcov")
     head = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
             + [ctypes.c_float] * 2 + [ctypes.c_int] * 2)
-    # the conv takes the walk before the device
-    for fn, ints in ((lib.cnn_gp_cov_conv, 2), (lib.cnn_gp_cov_pool, 1)):
-        fn.argtypes = head + [ctypes.c_int] * ints + [ctypes.c_void_p]
+    # the walk before the device
+    for fn in (lib.cnn_gp_cov_conv, lib.cnn_gp_cov_pool):
+        fn.argtypes = head + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     # the tangent ops: src, tsrc, out, tout, fx, fy, then as above less
     # the images' channels
@@ -527,10 +538,15 @@ def _kernel_takes(op: Op) -> bool:
 
 
 def _takes_walk(op: Op, channels: int) -> bool:
-    """Whether the conv ``op`` on images of ``channels`` channels takes
-    ``cov_conv_kernel``'s warp walk: a 3x3 "same" conv on square maps of
-    a side in ``WALK_MAPS``, its moments (if they are its prologue) of
-    ``WALK_CHANNELS``."""
+    """Whether ``op`` on images of ``channels`` channels takes its
+    kernel's walk: a conv ``cov_conv_kernel``'s warp walk (a 3x3 "same"
+    conv on square maps of a side in ``WALK_MAPS``, its moments, if they
+    are its prologue, of ``WALK_CHANNELS``), a pool ``cov_pool_kernel``'s
+    pool walk (a 2x2 pool on square maps of a side in ``POOL_WALK_MAPS``,
+    its prologue the ReLU or none)."""
+    if op.kind == "pool":
+        return op.k == 2 and op.w == op.h and op.h in POOL_WALK_MAPS \
+            and op.prologue in (NONE, RELU)
     return op.kind == "conv" and op.k == 3 and op.lo == 1 \
         and op.w == op.h and (op.wo, op.ho) == (op.w, op.h) \
         and op.h in WALK_MAPS \
@@ -538,9 +554,9 @@ def _takes_walk(op: Op, channels: int) -> bool:
 
 
 def _count(op: Op, walk: bool) -> None:
-    """Count one launch of ``op``'s kernel (``walk``: on the warp walk)."""
+    """Count one launch of ``op``'s kernel (``walk``: on its walk)."""
     global conv_launches, pool_launches, conv_walk_launches
-    global ntk_conv_launches, ntk_pool_launches
+    global pool_walk_launches, ntk_conv_launches, ntk_pool_launches
     if op.tangent:
         if op.kind == "conv":
             ntk_conv_launches += 1
@@ -551,14 +567,16 @@ def _count(op: Op, walk: bool) -> None:
         conv_walk_launches += walk
     else:
         pool_launches += 1
+        pool_walk_launches += walk
 
 
 def _launch(op: Op, src, x, y, vx, vy, zip_: bool, a: int, b: int,
             walk: Optional[bool] = None) -> torch.Tensor:
     """One launch of the op's kernel on ``a`` x ``b`` pairs (zipped: ``a``
     pairs, b = 1); returns the [a, b, Wo, Ho, Wo, Ho] fields.  ``walk``
-    picks a conv's walk (the warp walk where the kernel has it, else the
-    slab walk); None takes ``_takes_walk``'s."""
+    picks the kernel's walk (a conv's warp walk or a pool's pool walk
+    where the kernel has it, else the slab walk or one thread an
+    output); None takes ``_takes_walk``'s."""
     from .. import settings
     walk = _takes_walk(op, x.shape[1]) if walk is None else bool(walk)
     dev = x.device
@@ -570,16 +588,15 @@ def _launch(op: Op, src, x, y, vx, vy, zip_: bool, a: int, b: int,
     def ptr(t):
         return None if t is None else t.data_ptr()
     fn = _lib.conv if op.kind == "conv" else _lib.pool
-    tail = [int(walk)] if op.kind == "conv" else []
     err = fn(ptr(src), ptr(x), ptr(y), out.data_ptr(), ptr(vx), ptr(vy),
              a * b, 1 if zip_ else b, int(zip_), x.shape[1], op.w, op.h,
              op.k, op.lo, op.wo, op.ho, op.scale, op.bias, op.prologue,
-             int(settings.acos_impl != "poly"), *tail, dev.index,
+             int(settings.acos_impl != "poly"), int(walk), dev.index,
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{op.kind} kernel launch failed: cuda error "
                            f"{err} ({_lib.error_string(err)})")
-    _count(op, walk and op.kind == "conv")
+    _count(op, walk)
     return out
 
 

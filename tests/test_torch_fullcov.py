@@ -410,6 +410,57 @@ def test_myrtle10_convs_take_the_warp_walk(monkeypatch):
     assert fullcov._takes_walk(op._replace(k=3, lo=1), 1)
 
 
+def test_myrtle10_pools_take_the_pool_walk():
+    """The pool walk's chooser on the cifar10_myrtle10 plan: its 2x2 pools
+    on 32x32, 16x16 and 8x8 maps (behind a ReLU) take the pool walk,
+    those on 4x4 and 2x2 (no prologue) one thread an output; a pool of
+    another k, on odd, non-square or smaller maps, the identity pool and
+    the moments prologue never take it, nor does a conv of a pool's
+    geometry."""
+    model = load("cifar10_myrtle10").initial_model
+    pools = [op for op in fullcov.plan(fullcov.match(model), 32, 32)
+             if op.kind == "pool"]
+    assert [(op.h, op.prologue, fullcov._takes_walk(op, 3))
+            for op in pools] == [
+        (32, fullcov.RELU, True), (16, fullcov.RELU, True),
+        (8, fullcov.RELU, True), (4, fullcov.NONE, False),
+        (2, fullcov.NONE, False)]
+    assert fullcov.POOL_WALK_MAPS == (32, 16, 8)
+    op = pools[0]
+    assert fullcov._takes_walk(op._replace(prologue=fullcov.NONE, relu=-1),
+                               1)
+    for other in (op._replace(k=3, wo=10, ho=10),
+                  op._replace(k=4, wo=8, ho=8),
+                  op._replace(w=31, h=31, wo=15, ho=15),
+                  op._replace(h=16, ho=8),
+                  op._replace(w=16, wo=8),
+                  op._replace(k=1, scale=1.0, wo=32, ho=32),
+                  op._replace(prologue=fullcov.MOMENTS, relu=-1),
+                  op._replace(kind="conv")):
+        assert not fullcov._takes_walk(other, 3), other
+
+
+def test_pool_walk_launches_on_a_gram_call(monkeypatch):
+    """On the card (the CUDA route forced on CPU tensors) a Gram call of a
+    model pooled 16 -> 8 -> 4 -> 2 -> 1 counts its pools on 16x16 and
+    8x8 maps (behind a ReLU) on the pool walk and the others not, per
+    tile and pre-pass, and its gram.call span carries the count."""
+    _Counted(monkeypatch)
+    model = Sequential(Conv2d(3, var_weight=2.0), ReLU(), AvgPool2d(2),
+                       Conv2d(3, var_weight=2.0), ReLU(), AvgPool2d(2),
+                       AvgPool2d(2), AvgPool2d(2), Conv2d(1))
+    before = (fullcov.pool_launches, fullcov.pool_walk_launches)
+    with timing.recording() as found:
+        gram_device(model, _x(3, 16, 46), batch_size=2, device="cpu")
+    # tiles (0, 0), (0, 2), (2, 2) and the set's pre-pass, one chunk each
+    call = next(s for s in found if s.name == "gram.call")
+    assert call.attrs["fullcov.pool_launches"] == 4 * 4
+    assert call.attrs["fullcov.pool_walk_launches"] == 4 * 2
+    assert (fullcov.pool_launches - before[0],
+            fullcov.pool_walk_launches - before[1]) == (16, 8)
+    assert call.attrs["fullcov.conv_walk_launches"] == 4 * 2
+
+
 # pooled models with a conv the kernel does not take, the map side, and
 # the refused conv as the error names it
 _UNTAKEN = {
